@@ -1,0 +1,81 @@
+"""Anchor-free decoupled detect head with DFL box regression (counterpart
+of ``custom_yolo_tpu/models/head.py``): per level a box tower (two 3×3
+ConvBNs → 1×1 to 4·reg_max logits) and a cls tower (depthwise + pointwise
+twice → 1×1 to nc logits), flattened anchor-major and concatenated over
+levels p3, p4, p5."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from custom_yolo_tpu_torch.nn.blocks import ConvBN, conv2d
+from custom_yolo_tpu_torch.ops.anchors import make_anchors
+
+PRIOR_PROB = 1e-2  # classification bias prior (reference head.py:68)
+CLS_BIAS = math.log(PRIOR_PROB / (1 - PRIOR_PROB))
+
+
+class Head(nn.Module):
+    def __init__(self, num_classes: int, filters: Sequence[int],
+                 reg_max: int = 16, strides: Sequence[int] = (8, 16, 32),
+                 fused: bool = False):
+        super().__init__()
+        nc, rm = num_classes, reg_max
+        self.num_classes, self.reg_max = nc, rm
+        self.strides = tuple(strides)
+        box_ch = max(64, filters[0] // 4)
+        cls_ch = max(80, filters[0], nc)
+        for i, in_ch in enumerate(filters):
+            layers = {
+                f"box{i}_conv1": ConvBN(in_ch, box_ch, 3, padding=1,
+                                        fused=fused),
+                f"box{i}_conv2": ConvBN(box_ch, box_ch, 3, padding=1,
+                                        fused=fused),
+                f"box{i}_out": nn.Conv2d(box_ch, 4 * rm, 1),
+                f"cls{i}_dw1": ConvBN(in_ch, in_ch, 3, padding=1,
+                                      groups=in_ch, fused=fused),
+                f"cls{i}_pw1": ConvBN(in_ch, cls_ch, fused=fused),
+                f"cls{i}_dw2": ConvBN(cls_ch, cls_ch, 3, padding=1,
+                                      groups=cls_ch, fused=fused),
+                f"cls{i}_pw2": ConvBN(cls_ch, cls_ch, fused=fused),
+                f"cls{i}_out": nn.Conv2d(cls_ch, nc, 1),
+            }
+            for name, layer in layers.items():
+                self.add_module(name, layer)
+        self._anchors: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @property
+    def no(self) -> int:
+        return self.num_classes + 4 * self.reg_max
+
+    def anchors(self, feat_shapes: List[Tuple[int, int]],
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Anchors and strides for these level shapes, made once per
+        (shapes, device)."""
+        key = (tuple(feat_shapes), str(device))
+        if key not in self._anchors:
+            self._anchors[key] = make_anchors(feat_shapes, self.strides,
+                                              offset=0.5, device=device)
+        return self._anchors[key]
+
+    def _tower(self, x: torch.Tensor, *names: str) -> torch.Tensor:
+        for name in names:
+            layer = getattr(self, name)
+            x = conv2d(x, layer) if isinstance(layer, nn.Conv2d) else layer(x)
+        return x
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        outs = []
+        for i, x in enumerate(feats):
+            b = self._tower(x, f"box{i}_conv1", f"box{i}_conv2", f"box{i}_out")
+            c = self._tower(x, f"cls{i}_dw1", f"cls{i}_pw1", f"cls{i}_dw2",
+                            f"cls{i}_pw2", f"cls{i}_out")
+            outs.append(torch.cat([b, c], dim=1).flatten(2).transpose(1, 2))
+        preds = torch.cat(outs, dim=1)  # (N, M, 4·reg_max + nc)
+        anchors, strides = self.anchors(
+            [(f.shape[2], f.shape[3]) for f in feats], preds.device)
+        return preds, anchors, strides
