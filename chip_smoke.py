@@ -5,10 +5,13 @@
 Builds the port's hand-written CUDA kernels from ``custom_yolo_tpu_torch/
 ops/cuda/csrc``, holds each against its plain PyTorch twin on the card,
 serves the full-width ``x`` preset (640², 172 classes, bf16, random seeded
-weights) through ``Detector.serve`` and ``Detector.inference`` while
-counting kernel launches, compares the card with the CPU in fp32, and
-times the kernels and the serving path with CUDA events. Any failed check
-ends the run with a non-zero exit. The last line is
+weights) through ``Detector.serve`` and ``Detector.inference``, then trains
+the same preset for a few steps (``create_train_model`` /
+``build_optimizer`` / ``TrainState.create`` / ``make_train_step``, TAL then
+nearest, EMA and warm-up on) while counting kernel launches, compares the
+card with the CPU in fp32 for serving and for one train step, and times
+the kernels, the serving path and the train step with CUDA events. Any
+failed check ends the run with a non-zero exit. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as ``nvidia-smi`` reports them.
 """
@@ -28,19 +31,30 @@ import torch
 import torch.nn.functional as F
 
 from custom_yolo_tpu_torch import PRESETS, Detector
+from custom_yolo_tpu_torch.config import TrainingConfig
 from custom_yolo_tpu_torch.models.detector import (IMAGENET_MEAN,
                                                    IMAGENET_STD,
+                                                   create_train_model,
                                                    decode_raw_predictions)
 from custom_yolo_tpu_torch.ops import attention, nms_kernel
 from custom_yolo_tpu_torch.ops.anchors import num_anchors
 from custom_yolo_tpu_torch.ops.cuda import build
 from custom_yolo_tpu_torch.ops.nms import MAX_WH, _gather_candidates, \
     batched_nms
+from custom_yolo_tpu_torch.train.losses import DetectionLoss, LossConfig
+from custom_yolo_tpu_torch.train.optim import build_optimizer
+from custom_yolo_tpu_torch.train.train_state import TrainState
+from custom_yolo_tpu_torch.train.train_step import make_train_step
 
 SEED = 0
 HW = 640
 NUM_CLASSES = 172
 SERVE_BATCH = 8
+TRAIN_BATCH = 8
+TRAIN_MAX_BOXES = 16
+# the small model of the CPU tests, for the card-against-CPU train step
+SMALL = dict(width=(3, 8, 16, 32, 64, 256), depth=(2, 1, 1, 1, 2, 1),
+             csp=(True, True), num_classes=7, hw=64, batch=2, boxes=4)
 # random weights score ~0.01; a gate this low fills every 1024-candidate
 # pool, so the NMS kernel does its full work
 POOL_CONF = 0.001
@@ -52,10 +66,15 @@ FP32_FLOPS = 67e12
 # fp32 operations per IoU test in the greedy sweep: 4 min/max, 2 sub,
 # 2 clamp, 1 mul, 3 add/sub, 1 div, 1 compare
 NMS_OPS_PER_PAIR = 14
-# device-time categories of the serve profile, matched in this order on
-# the kernel's name; the last takes the rest
+# device-time categories of a profile, matched in this order on the
+# kernel's name; the last takes the rest
 KERNEL_CATEGORIES = (
-    ("port kernels", ("psa_attention_fwd", "nms_keep_kernel")),
+    ("port kernels", ("psa_attention_fwd", "psa_attention_bwd",
+                      "nms_keep_kernel")),
+    ("batch norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm",
+                    "BatchNorm")),
+    ("optimizer and EMA", ("multi_tensor", "lerp")),
+    ("reductions", ("reduce_kernel", "Welford", "welford")),
     ("convolution", ("fprop", "conv", "xmma", "cudnn", "cutlass", "gemm")),
     ("copy and concat", ("copy", "Cat")),
     ("pooling", ("pool",)),
@@ -111,7 +130,7 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_serve(fn, reps: int = 5) -> dict:
+def profile_call(fn, reps: int = 5) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` under torch.profiler,
     and the kernels that took the most device time. Busy time is the union
     of the kernel, copy and memset intervals of the trace; the window is
@@ -229,6 +248,60 @@ def nms_bound_ms(keep: torch.Tensor) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def attention_loss64(qkv: torch.Tensor, w_out: torch.Tensor,
+                     w_v: torch.Tensor, nh: int, dk: int, dh: int):
+    """``Σ out·w_out + Σ v·w_v`` of the attention forward, in float64
+    throughout (for finite differences)."""
+    b, t, _ = qkv.shape
+    qkv4 = qkv.reshape(b, t, nh, 2 * dk + dh)
+    q, k, v = qkv4[..., :dk], qkv4[..., dk:2 * dk], qkv4[..., 2 * dk:]
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * dk ** -0.5, -1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, nh * dh)
+    return (out * w_out).sum() + (v.reshape(b, t, nh * dh) * w_v).sum()
+
+
+def train_batch(n: int, hw: int, max_boxes: int, num_classes: int,
+                seed: int, device, size=(0.06, 0.46)) -> dict:
+    """A seeded synthetic batch: normalised images, 1..max_boxes
+    centre-xywh boxes per image (padded, masked), their sides between
+    ``size`` fractions of the image's, and labels."""
+    gen = torch.Generator().manual_seed(seed)
+    images = normalize(torch.randint(0, 256, (n, hw, hw, 3), generator=gen,
+                                     dtype=torch.uint8))
+    centres = torch.rand(n, max_boxes, 2, generator=gen) * hw * 0.75 \
+        + hw * 0.125
+    sizes = (torch.rand(n, max_boxes, 2, generator=gen)
+             * (size[1] - size[0]) + size[0]) * hw
+    counts = torch.randint(1, max_boxes + 1, (n, 1), generator=gen)
+    batch = {
+        "images": images,
+        "gt_boxes": torch.cat([centres, sizes], dim=-1),
+        "gt_labels": torch.randint(0, num_classes, (n, max_boxes),
+                                   generator=gen),
+        "gt_mask": torch.arange(max_boxes)[None] < counts,
+    }
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_engine(width, depth, csp, num_classes, precision, device, seed,
+                 assigner, ema_decay=0.9999, warmup_steps=3):
+    """Model, state and step through the port's training entry points."""
+    model = create_train_model(width, depth, csp, num_classes,
+                               precision=precision, device=device, seed=seed)
+    optimizer = build_optimizer(model.parameters(), TrainingConfig())
+    state = TrainState.create(model, optimizer,
+                              torch.Generator().manual_seed(seed), ema=True)
+    loss_fn = DetectionLoss(LossConfig(num_classes=num_classes,
+                                       assigner=assigner))
+    step = make_train_step(model, loss_fn, optimizer, ema_decay=ema_decay,
+                           warmup_steps=warmup_steps)
+    return model, optimizer, state, step
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -304,6 +377,65 @@ def main() -> None:
         nms_mismatch += mismatch
         log(f"phase 4 nms N={n} K={k}: keep-masks equal "
             f"({int(keep.sum())} kept)")
+
+    # ------------------------------------------- 4b. K4 against its twin
+    # the same two shapes, with random cotangents for out and v
+    bwd_err = {}
+    for shape in ((b, t, nh, dk, dh), (3, 37, 2, 8, 16)):
+        sb, st, snh, sdk, sdh = shape
+        qkv32 = torch.randn(sb, st, snh * (2 * sdk + sdh),
+                            generator=gen).to(dev)
+        do32 = torch.randn(sb, st, snh * sdh, generator=gen).to(dev)
+        dv32 = torch.randn(sb, st, snh * sdh, generator=gen).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            args = (qkv32.to(dtype), do32.to(dtype), dv32.to(dtype),
+                    snh, sdk, sdh)
+            got = attention.psa_attention_bwd(*args)
+            torch.cuda.synchronize()
+            again = attention.psa_attention_bwd(*args)
+            ref = attention.psa_attention_bwd_reference(*args)
+            check(torch.equal(got, again), f"attention backward {shape} "
+                  f"{dtype} differs between two runs")
+            g, r = got.float(), ref.float()
+            check(bool(torch.isfinite(g).all()), "attention backward not "
+                  f"finite {shape} {dtype}")
+            err = (g - r).abs().max().item()
+            cos = cosine(g, r)
+            if dtype == torch.float32:
+                check(err <= 1e-4, f"attention backward {shape} fp32: max "
+                      f"abs err {err} > 1e-4")
+            else:
+                check(torch.allclose(g, r, atol=0.15, rtol=0.15)
+                      and cos > 0.999, f"attention backward {shape} bf16: "
+                      f"max abs err {err}, cosine {cos}")
+            bwd_err[shape, dtype] = err
+            log(f"phase 4b attention backward {shape} {dtype}: max abs err "
+                f"{err}, cosine {cos:.7f} (limits: fp32 1e-4; bf16 atol/rtol "
+                f"0.15 and cosine > 0.999), |dqkv| max {r.abs().max().item()}")
+    # the Function's gradient on the card against central differences of
+    # a float64 forward, along a random direction
+    fd_shape = (2, 16, 2, 8, 16)
+    fb, ft, fnh, fdk, fdh = fd_shape
+    q0 = torch.randn(fb, ft, fnh * (2 * fdk + fdh), generator=gen).to(dev)
+    w_out = torch.randn(fb, ft, fnh * fdh, generator=gen).to(dev)
+    w_v = torch.randn(fb, ft, fnh * fdh, generator=gen).to(dev)
+    direction = torch.randn(q0.shape, generator=gen).to(dev)
+    leaf = q0.clone().requires_grad_()
+    out, v = attention.psa_attention(leaf, fnh, fdk, fdh)
+    ((out * w_out).sum() + (v * w_v).sum()).backward()
+    analytic = float((leaf.grad.double() * direction.double()).sum())
+    eps = 1e-6
+    f64 = [attention_loss64(q0.double() + sign * eps * direction.double(),
+                            w_out.double(), w_v.double(), fnh, fdk, fdh)
+           for sign in (1, -1)]
+    numeric = float((f64[0] - f64[1]) / (2 * eps))
+    check(abs(analytic - numeric) <= 1e-3 * max(abs(numeric), 1.0),
+          f"attention Function gradient {analytic} vs finite differences "
+          f"{numeric}")
+    log(f"phase 4b attention Function {fd_shape} fp32: directional "
+        f"derivative {analytic} vs float64 central differences {numeric}")
+    do_x = torch.randn(b, t, nh * dh, generator=gen).to(dev, torch.bfloat16)
+    dv_x = torch.randn(b, t, nh * dh, generator=gen).to(dev, torch.bfloat16)
 
     # ------------------------------------------- 5. full-width serving
     p = PRESETS["x"]
@@ -402,6 +534,114 @@ def main() -> None:
         f"equal, boxes within {box_err} px; CPU forward {cpu_s:.1f} s")
     del gpu32, cpu32
 
+    # ------------------------------------------- 6b. full-width training
+    # x preset, 640², bf16: 5 steps with the task-aligned assigner, then 2
+    # with the nearest-centre one, on one seeded batch
+    torch.cuda.empty_cache()
+    train_n = TRAIN_BATCH
+    nearest_steps, tal_steps = 2, 5
+    while True:
+        model = optimizer = state = tal_step = None
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            model, optimizer, state, tal_step = train_engine(
+                p["width"], p["depth"], p["csp"], NUM_CLASSES, "bfloat16",
+                "cuda", SEED, "tal")
+            tbatch = train_batch(train_n, HW, TRAIN_MAX_BOXES, NUM_CLASSES,
+                                 SEED + 2, dev)
+            attention.psa_attention.launches = 0
+            attention.psa_attention_bwd.launches = 0
+            nms_kernel.nms_keep.launches = 0
+            tal_metrics = []
+            for _ in range(tal_steps):
+                state, metrics = tal_step(state, tbatch)
+                tal_metrics.append({k: float(v) for k, v in metrics.items()})
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(train_n > 1, "the x preset does not train at batch 1")
+            log(f"phase 6b batch {train_n} does not fit in device memory; "
+                f"halving the batch (the width stays)")
+            del model, optimizer, state, tal_step
+            torch.cuda.empty_cache()
+            train_n //= 2
+    qkv_grads = {name: float(prm.grad.float().abs().max())
+                 for name, prm in model.named_parameters()
+                 if name.endswith("attn.qkv.conv.weight")}
+    nearest_step = make_train_step(
+        model, DetectionLoss(LossConfig(num_classes=NUM_CLASSES,
+                                        assigner="nearest")),
+        optimizer, ema_decay=0.9999, warmup_steps=3)
+    nearest_metrics = []
+    for _ in range(nearest_steps):
+        state, metrics = nearest_step(state, tbatch)
+        nearest_metrics.append({k: float(v) for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    train_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_launches = {"attention": attention.psa_attention.launches,
+                      "attention_bwd": attention.psa_attention_bwd.launches,
+                      "nms": nms_kernel.nms_keep.launches}
+    steps = tal_steps + nearest_steps
+    check(train_launches == {"attention": 2 * steps,
+                             "attention_bwd": 2 * steps, "nms": 0},
+          f"{steps} train steps launched {train_launches}, want attention "
+          f"and attention_bwd {2 * steps} each (2 per step), nms 0")
+    for i, metrics in enumerate(tal_metrics + nearest_metrics):
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"train step {i + 1}: non-finite metric in {metrics}")
+    check(set(tal_metrics[0]) == {"total_loss", "box_loss", "cls_loss",
+                                  "dfl_loss", "grad_norm"}
+          and set(nearest_metrics[0]) == {"total_loss", "box_loss",
+                                          "cls_loss", "grad_norm"},
+          "train metrics carry other names than the reference's")
+    check(len(qkv_grads) == 2 and all(g > 0 for g in qkv_grads.values()),
+          f"the PSA qkv convolutions' weight gradients: {qkv_grads} (zero "
+          f"means the attention kernel cut the graph)")
+    check(tal_metrics[-1]["total_loss"] < tal_metrics[0]["total_loss"],
+          f"TAL loss did not fall on one batch: {tal_metrics[0]} → "
+          f"{tal_metrics[-1]}")
+    check(state.step == steps and tal_metrics[0]["box_loss"] > 0,
+          "train state step count, or no TAL positive in the batch")
+    ema_gap = max(float((state.ema[k] - v).abs().max())
+                  for k, v in state.variables.items())
+    check(0 < ema_gap, "the EMA did not lag the live parameters")
+    log(f"phase 6b x preset train B={train_n} bf16: "
+        f"{sum(x.numel() for x in model.parameters())} parameters; TAL "
+        f"total_loss per step {[m['total_loss'] for m in tal_metrics]}, "
+        f"grad_norm {[m['grad_norm'] for m in tal_metrics]}; nearest "
+        f"total_loss {[m['total_loss'] for m in nearest_metrics]}; qkv "
+        f"weight |grad| max {qkv_grads}; launches {train_launches}; peak "
+        f"memory {train_peak_gb:.2f} GiB")
+
+    # ------------------------------------------- 6c. train step, card vs CPU
+    small_metrics, small_grads = {}, {}
+    for device in ("cpu", "cuda"):
+        small, _, small_state, small_step = train_engine(
+            SMALL["width"], SMALL["depth"], SMALL["csp"],
+            SMALL["num_classes"], "float32", device, SEED, "tal")
+        sbatch = train_batch(SMALL["batch"], SMALL["hw"], SMALL["boxes"],
+                             SMALL["num_classes"], SEED + 3, device,
+                             size=(0.4, 0.9))
+        _, metrics = small_step(small_state, sbatch)
+        small_metrics[device] = {k: float(v) for k, v in metrics.items()}
+        small_grads[device] = {k: prm.grad.detach().cpu()
+                               for k, prm in small.named_parameters()}
+    loss_c = small_metrics["cpu"]["total_loss"]
+    loss_g = small_metrics["cuda"]["total_loss"]
+    check(small_metrics["cpu"]["box_loss"] > 0,
+          "the small batch gave the task-aligned assigner no positive")
+    check(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c),
+          f"fp32 train step: loss on the card {loss_g} vs CPU {loss_c}")
+    g_max = max(float(g.abs().max()) for g in small_grads["cpu"].values())
+    g_err = max(float((small_grads["cuda"][k] - g).abs().max())
+                for k, g in small_grads["cpu"].items())
+    check(g_err <= 1e-3 * g_max, f"fp32 train step: gradients differ by "
+          f"{g_err}, largest gradient {g_max}")
+    log(f"phase 6c fp32 train step card vs CPU (TF32 off, small model, "
+        f"64², B={SMALL['batch']}): loss {loss_g} vs {loss_c} (limit 1e-4 "
+        f"relative); gradients max abs err {g_err} (limit 1e-3 of the "
+        f"largest, {g_max}); metrics card {small_metrics['cuda']}")
+    del small, small_state, small_step, small_grads
+
     # ------------------------------------------------------ 7. timings
     qkv = qkv_x
     k1_ms = time_ms(lambda: attention.psa_attention(qkv, nh, dk, dh))
@@ -431,6 +671,25 @@ def main() -> None:
         shifted, cand_valid, 0.45), reps=20, warmup=1)
     k2_bound = nms_bound_ms(keep)
 
+    # K4 at the x shape, its twin, and the library's attention backward
+    k4_ms = time_ms(lambda: attention.psa_attention_bwd(
+        qkv, do_x, dv_x, nh, dk, dh))
+    k4_plain = time_ms(lambda: attention.psa_attention_bwd_reference(
+        qkv, do_x, dv_x, nh, dk, dh))
+    lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, kk, vv))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+    lib_do = do_x.view(b, t, nh, dh).transpose(1, 2)
+    k4_lib = time_ms(lambda: torch.autograd.grad(
+        lib_out, (lq, lk, lv), lib_do, retain_graph=True))
+    k4_bytes = (2 * qkv.numel() + do_x.numel() + dv_x.numel()) * 2
+    k4_ops = 2 * b * nh * t * t * (3 * dk + 2 * dh)
+    t_bytes = k4_bytes / HBM_BYTES_S * 1e3
+    t_ops = k4_ops / BF16_FLOPS * 1e3
+    k4_bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                else "operations")
+
+    train_ms = time_ms(lambda: tal_step(state, tbatch), reps=5, warmup=1)
+
     serve_b = time_ms(lambda: det.serve(batch, conf_thres=POOL_CONF,
                                         device_preprocess=True))
     one = batch[:1].contiguous()
@@ -443,11 +702,17 @@ def main() -> None:
             "img_per_s": SERVE_BATCH / serve_b * 1e3,
             "conf_thres": POOL_CONF},
         "latency_x640_bf16_b1_ms": serve_1,
+        "train_x640_bf16": {
+            "batch": train_n, "assigner": "tal", "ms": train_ms,
+            "img_per_s": train_n / train_ms * 1e3,
+            "peak_memory_gib": train_peak_gb},
         "build_s": build_s,
     }
     log(json.dumps(timing))
+    prof = profile_call(lambda: tal_step(state, tbatch), reps=2)
+    log(json.dumps({"card": card, "profile_train_batch": train_n, **prof}))
     for images in (batch, one):
-        prof = profile_serve(lambda: det.serve(
+        prof = profile_call(lambda: det.serve(
             images, conf_thres=POOL_CONF, device_preprocess=True))
         log(json.dumps({"card": card, "profile_serve_batch": len(images),
                         **prof}))
@@ -456,16 +721,29 @@ def main() -> None:
         {"name": "psa_attention_fwd", "route": "cuda",
          "source": "custom_yolo_tpu_torch/ops/cuda/csrc/attention.cu",
          "replaces": "custom_yolo_tpu/ops/pallas/attention_kernel.py:37",
-         "launches": launches["attention"],
+         "launches": launches["attention"] + train_launches["attention"],
+         "launches_by_path": {"serve": launches["attention"],
+                              "train": train_launches["attention"]},
          "max_abs_err": attn_err[(b, t, nh, dk, dh), torch.bfloat16],
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": k1_lib},
         {"name": "nms_keep_batched", "route": "cuda",
          "source": "custom_yolo_tpu_torch/ops/cuda/csrc/nms.cu",
          "replaces": "custom_yolo_tpu/ops/pallas/nms_kernel.py:82",
-         "launches": launches["nms"], "max_abs_err": float(nms_mismatch),
+         "launches": launches["nms"],
+         "launches_by_path": {"serve": launches["nms"], "train": 0},
+         "max_abs_err": float(nms_mismatch),
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "psa_attention_bwd", "route": "cuda",
+         "source": "custom_yolo_tpu_torch/ops/cuda/csrc/attention_bwd.cu",
+         "replaces": "custom_yolo_tpu/ops/pallas/attention_kernel.py:90",
+         "launches": train_launches["attention_bwd"],
+         "launches_by_path": {"serve": 0,
+                              "train": train_launches["attention_bwd"]},
+         "max_abs_err": bwd_err[(b, t, nh, dk, dh), torch.bfloat16],
+         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": k4_lib},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,11 +1,14 @@
 """custom_yolo_tpu_torch — the PyTorch/CUDA port of ``custom_yolo_tpu``.
 
 The same YOLO detector (CSP backbone, SPPF + PSA attention, FPN-PAN neck,
-anchor-free DFL head, class-aware batched NMS) served on an NVIDIA Hopper
-card. Plain tensor work runs through PyTorch; the two hand-written
-kernels of the serving path (PSA attention forward, batched greedy-NMS
-keep mask) are CUDA C++ for ``sm_90a`` under ``ops/cuda/csrc``, each with
-a plain PyTorch twin that tensors on the CPU take.
+anchor-free DFL head, class-aware batched NMS) served and trained on an
+NVIDIA Hopper card. Plain tensor work runs through PyTorch; the
+hand-written kernels of the serving and training paths (PSA attention
+forward and backward, batched greedy-NMS keep mask) are CUDA C++ for
+``sm_90a`` under ``ops/cuda/csrc``, each with a plain PyTorch twin that
+tensors on the CPU take. ``train/`` holds the assigners, the detection
+loss, AdamW with the plateau schedule, the train state and the train and
+eval steps.
 
 Public layouts follow the JAX package: images NHWC, predictions
 anchor-major ``(N, M, 4·reg_max + nc)``. Entry points run on ``cuda``

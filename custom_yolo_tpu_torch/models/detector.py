@@ -3,10 +3,13 @@
 
 :class:`YoloModel` is Backbone + Neck + Head on NHWC input. :class:`Detector`
 holds one model on one device and serves it: ``init`` (seeded weights) or
-``load_variables`` (a JAX variable tree as numpy), ``fuse`` (fold each
+``load_variables`` (a JAX variable tree as numpy, or a train state's
+variables), ``fuse`` (fold each
 BatchNorm into its conv), ``__call__`` (raw head output), ``serve``
 (forward + DFL decode + class-aware batched NMS, fixed-shape result) and
 ``inference`` (one image in, ``(n, 6)`` detections out).
+:func:`create_train_model` gives the unfused model in training mode for
+the train step.
 """
 
 from __future__ import annotations
@@ -70,6 +73,29 @@ def init_weights(model: YoloModel, seed: int) -> None:
                                    and name.endswith("_out") else 0.0)
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
+
+
+def create_train_model(width: Sequence[int], depth: Sequence[int],
+                       csp: Sequence[bool], num_classes: int,
+                       reg_max: int = 16, precision: str = "bfloat16",
+                       device: str | torch.device = "cuda",
+                       seed: int = 0,
+                       variables: Optional[Mapping[str, Any]] = None
+                       ) -> YoloModel:
+    """The unfused model for the train step: in training mode, on
+    ``device`` (``cuda`` unless the caller says otherwise; no fallback),
+    ``channels_last``. Weights from ``variables`` (a JAX
+    ``{"params", "batch_stats"}`` tree as numpy) when given, else seeded
+    random ones."""
+    model = YoloModel(width, depth, csp, num_classes, reg_max,
+                      resolve_policy(precision), fused=False)
+    if variables is not None:
+        model.load_state_dict(from_jax_variables(variables, model),
+                              strict=True)
+    else:
+        init_weights(model, seed)
+    model = model.to(torch.device(device), memory_format=torch.channels_last)
+    return model.train()
 
 
 def fuse_state_dict(state: Mapping[str, torch.Tensor]
@@ -216,11 +242,19 @@ class Detector:
 
     def load_variables(self, variables: Mapping[str, Any]) -> None:
         """Load a JAX variable tree given as nested dicts of numpy arrays:
-        ``{"params", "batch_stats"}`` (unfused) or ``{"params"}`` (fused)."""
-        fused = "batch_stats" not in variables
-        model = self._build(fused)
-        model.load_state_dict(from_jax_variables(variables, model),
-                              strict=True)
+        ``{"params", "batch_stats"}`` (unfused) or ``{"params"}`` (fused);
+        or the port's own variables, a flat dict of tensors by state-dict
+        key (``TrainState.eval_variables``), which are copied."""
+        if all(isinstance(v, torch.Tensor) for v in variables.values()):
+            fused = not any(".bn." in key for key in variables)
+            model = self._build(fused)
+            state = {**model.state_dict(),
+                     **{k: v.detach().clone() for k, v in variables.items()}}
+        else:
+            fused = "batch_stats" not in variables
+            model = self._build(fused)
+            state = from_jax_variables(variables, model)
+        model.load_state_dict(state, strict=True)
         self._install(model, fused)
 
     def fuse(self) -> "Detector":

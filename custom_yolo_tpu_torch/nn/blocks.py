@@ -50,9 +50,23 @@ class ConvBN(nn.Module):
         if self.bn is not None:
             # normalise in fp32 and round once, as flax's BatchNorm does
             bn = self.bn
-            y = F.batch_norm(y.float(), bn.running_mean, bn.running_var,
-                             bn.weight, bn.bias, self.training, bn.momentum,
-                             bn.eps).to(x.dtype)
+            yf = y.float()
+            if self.training:
+                # flax's running update: the *biased* fp32 batch variance
+                # (F.batch_norm would store the unbiased one, n/(n−1)
+                # larger). One pass; flax's E[x²] − E[x]² is the same
+                # number up to its cancellation error.
+                with torch.no_grad():
+                    var, mean = torch.var_mean(yf, dim=(0, 2, 3),
+                                               unbiased=False)
+                    bn.running_mean.lerp_(mean, bn.momentum)
+                    bn.running_var.lerp_(var, bn.momentum)
+                y = F.batch_norm(yf, None, None, bn.weight, bn.bias, True,
+                                 0.0, bn.eps).to(x.dtype)
+            else:
+                y = F.batch_norm(yf, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, False, 0.0,
+                                 bn.eps).to(x.dtype)
         return F.silu(y) if self.act else y
 
 

@@ -30,6 +30,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # JAX package.
 SOURCES = {
     "attention": ("attention.cu", ()),
+    "attention_bwd": ("attention_bwd.cu", ()),
     "nms": ("nms.cu", ("-fmad=false",)),
 }
 

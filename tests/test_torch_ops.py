@@ -259,12 +259,21 @@ def test_wrappers_refuse_instead_of_falling_back():
     valid = torch.empty(1, 8, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         nms_kernel.nms_keep(boxes, valid, 0.45)
+    grad = torch.empty(1, 16, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.psa_attention_bwd(qkv, grad, grad, 1, 16, 32)
+    # nor with cotangents that do lie on the CPU
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.psa_attention_bwd(qkv, torch.empty(1, 16, 32),
+                                    torch.empty(1, 16, 32), 1, 16, 32)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            build.load("attention")
+        for name in build.SOURCES:
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                build.load(name)
         with pytest.raises((RuntimeError, AssertionError)):
             torch.empty(1, device="cuda")
     assert attention.psa_attention.launches == 0
+    assert attention.psa_attention_bwd.launches == 0
     assert nms_kernel.nms_keep.launches == 0
 
 
@@ -275,6 +284,7 @@ def test_build_names_libraries_by_source_hash():
         assert path.parent == build.BUILD_DIR and path.name.startswith(name)
         src, flags = build.SOURCES[name]
         assert (build.CSRC / src).exists()
+    assert set(build.SOURCES) == {"attention", "attention_bwd", "nms"}
     assert "-fmad=false" in build.SOURCES["nms"][1]
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     ignored = (REPO / ".gitignore").read_text()
@@ -290,8 +300,15 @@ def test_port_imports_no_jax_or_reference_package():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0].rstrip(",")
-                assert mod not in ("jax", "jaxlib", "flax", "orbax",
+                assert mod not in ("jax", "jaxlib", "flax", "optax", "orbax",
                                    "custom_yolo_tpu"), (path, line)
+    names = {str(path.relative_to(REPO)) for path in files}
+    assert {"custom_yolo_tpu_torch/config.py",
+            "custom_yolo_tpu_torch/train/assigner.py",
+            "custom_yolo_tpu_torch/train/losses.py",
+            "custom_yolo_tpu_torch/train/optim.py",
+            "custom_yolo_tpu_torch/train/train_state.py",
+            "custom_yolo_tpu_torch/train/train_step.py"} <= names
 
 
 def test_port_detector_runs_without_jax_loaded():
@@ -308,8 +325,29 @@ def test_port_detector_runs_without_jax_loaded():
         "res = det.serve(img.astype(np.uint8), conf_thres=0.001,\n"
         "                device_preprocess=True)\n"
         "assert res.boxes.shape == (2, 21, 4), res.boxes.shape\n"
+        "from custom_yolo_tpu_torch.config import TrainingConfig\n"
+        "from custom_yolo_tpu_torch.models.detector import "
+        "create_train_model\n"
+        "from custom_yolo_tpu_torch.train.losses import DetectionLoss, "
+        "LossConfig\n"
+        "from custom_yolo_tpu_torch.train.optim import build_optimizer\n"
+        "from custom_yolo_tpu_torch.train.train_state import TrainState\n"
+        "from custom_yolo_tpu_torch.train.train_step import "
+        "make_train_step\n"
+        "model = create_train_model((3, 8, 16, 16, 32, 64), (1,) * 6,\n"
+        "    (False, True), 3, precision='float32', device='cpu')\n"
+        "opt = build_optimizer(model.parameters(), TrainingConfig())\n"
+        "state = TrainState.create(model, opt, torch.Generator(), ema=True)\n"
+        "step = make_train_step(model, DetectionLoss(LossConfig(\n"
+        "    num_classes=3, assigner='tal')), opt, ema_decay=0.99)\n"
+        "batch = {'images': torch.rand(2, 32, 32, 3),\n"
+        "         'gt_boxes': torch.tensor([[[16., 16., 20., 20.]]] * 2),\n"
+        "         'gt_labels': torch.zeros(2, 1, dtype=torch.int64),\n"
+        "         'gt_mask': torch.ones(2, 1, dtype=torch.bool)}\n"
+        "state, metrics = step(state, batch)\n"
+        "assert state.step == 1 and torch.isfinite(metrics['total_loss'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'custom_yolo_tpu')]\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'custom_yolo_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
