@@ -5,15 +5,18 @@
 Builds the port's hand-written CUDA kernels from ``custom_yolo_tpu_torch/
 ops/cuda/csrc``, holds each against its plain PyTorch twin on the card,
 serves the full-width ``x`` preset (640², 172 classes, bf16, random seeded
-weights) through ``Detector.serve`` and ``Detector.inference``, then trains
-the same preset for a few steps (``create_train_model`` /
+weights) through ``Detector.serve`` and ``Detector.inference``, fused and
+then also through ``optimize_for_serving`` with the fused cls tower on,
+trains the same preset for a few steps (``create_train_model`` /
 ``build_optimizer`` / ``TrainState.create`` / ``make_train_step``, TAL then
-nearest, EMA and warm-up on) while counting kernel launches, compares the
-card with the CPU in fp32 for serving and for one train step, and times
-the kernels, the serving path and the train step with CUDA events. Any
-failed check ends the run with a non-zero exit. The last line is
-``{"ok": true, "device": {...}}``; the line before it is the card's name
-and power limit as ``nvidia-smi`` reports them.
+nearest, EMA and warm-up on), evaluates the trained state
+(``make_eval_step`` → ``decode_predictions`` → ``DetectionMetrics`` /
+``COCOmAP``), all while counting kernel launches, compares the card with
+the CPU in fp32 for serving, for one train step and for evaluation, and
+times the kernels, the serving variants, the train step and the eval step
+with CUDA events. Any failed check ends the run with a non-zero exit. The
+last line is ``{"ok": true, "device": {...}}``; the line before it is the
+card's name and power limit as ``nvidia-smi`` reports them.
 """
 
 from __future__ import annotations
@@ -32,11 +35,16 @@ import torch.nn.functional as F
 
 from custom_yolo_tpu_torch import PRESETS, Detector
 from custom_yolo_tpu_torch.config import TrainingConfig
+from custom_yolo_tpu_torch.eval import (COCOmAP, DetectionMetrics,
+                                        decode_predictions)
+from custom_yolo_tpu_torch.eval.decode import decoded_to_lists
 from custom_yolo_tpu_torch.models.detector import (IMAGENET_MEAN,
                                                    IMAGENET_STD,
                                                    create_train_model,
                                                    decode_raw_predictions)
-from custom_yolo_tpu_torch.ops import attention, nms_kernel
+from custom_yolo_tpu_torch.models.head import CLS_BIAS
+from custom_yolo_tpu_torch.ops import (attention, head_kernel, nms_kernel,
+                                       sppf_kernel)
 from custom_yolo_tpu_torch.ops.anchors import num_anchors
 from custom_yolo_tpu_torch.ops.cuda import build
 from custom_yolo_tpu_torch.ops.nms import MAX_WH, _gather_candidates, \
@@ -44,7 +52,8 @@ from custom_yolo_tpu_torch.ops.nms import MAX_WH, _gather_candidates, \
 from custom_yolo_tpu_torch.train.losses import DetectionLoss, LossConfig
 from custom_yolo_tpu_torch.train.optim import build_optimizer
 from custom_yolo_tpu_torch.train.train_state import TrainState
-from custom_yolo_tpu_torch.train.train_step import make_train_step
+from custom_yolo_tpu_torch.train.train_step import (make_eval_step,
+                                                    make_train_step)
 
 SEED = 0
 HW = 640
@@ -70,7 +79,9 @@ NMS_OPS_PER_PAIR = 14
 # kernel's name; the last takes the rest
 KERNEL_CATEGORIES = (
     ("port kernels", ("psa_attention_fwd", "psa_attention_bwd",
-                      "nms_keep_kernel")),
+                      "nms_keep_kernel", "nms_mask_kernel",
+                      "nms_sweep_kernel", "sppf_pyramid_kernel",
+                      "cls_stage_kernel")),
     ("batch norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm",
                     "BatchNorm")),
     ("optimizer and EMA", ("multi_tensor", "lerp")),
@@ -82,6 +93,32 @@ KERNEL_CATEGORIES = (
     ("elementwise", ("elementwise",)),
     ("other", ()),
 )
+
+
+# the wrappers that count their kernel launches, by the name used in the
+# launch tables below
+COUNTED = {
+    "attention": attention.psa_attention,
+    "attention_bwd": attention.psa_attention_bwd,
+    "nms_batched": nms_kernel.nms_keep_batched,
+    "nms_single": nms_kernel.nms_keep_single,
+    "sppf": sppf_kernel.sppf_pyramid,
+    "cls_tower": head_kernel.cls_tower,
+}
+
+
+def reset_counts() -> None:
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+
+
+def counts(**nonzero) -> dict:
+    """A launch table with the named counts and 0 elsewhere."""
+    return {name: nonzero.get(name, 0) for name in COUNTED}
 
 
 def log(*args):
@@ -248,6 +285,83 @@ def nms_bound_ms(keep: torch.Tensor) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
+def roofline(n_bytes: float, ops: float, peak_ops: float) -> tuple:
+    """(least ms, what bounds it) for this many bytes and operations."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def channels_last(shape, dtype, gen, dev) -> torch.Tensor:
+    """A seeded NCHW tensor in channels_last memory."""
+    return torch.randn(shape, generator=gen).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def tower_params(cin: int, mid: int, nc: int, dtype, gen, dev):
+    """Seeded cls-tower weights in the layout ``cls_tower`` takes."""
+    def mk(*shape):
+        return (torch.randn(*shape, generator=gen) * 0.1).to(dev, dtype)
+    return ((mk(3, 3, cin), mk(cin)), (mk(cin, mid), mk(mid)),
+            (mk(3, 3, mid), mk(mid)), (mk(mid, mid), mk(mid)),
+            (mk(mid, nc), mk(nc)))
+
+
+def ground_truth_lists(batch: dict) -> list:
+    """A train batch's padded targets → per-image (n, 5) [cx, cy, w, h,
+    cls] numpy arrays."""
+    boxes = batch["gt_boxes"].cpu().numpy()
+    labels = batch["gt_labels"].cpu().numpy()
+    mask = batch["gt_mask"].cpu().numpy()
+    return [np.concatenate([boxes[i][mask[i]],
+                            labels[i][mask[i], None].astype(np.float32)], 1)
+            for i in range(len(boxes))]
+
+
+def evaluate(eval_step, state, batch, num_classes: int, conf: float,
+             use_nms: bool):
+    """One eval step, decode, and both metrics over the batch, through the
+    port's evaluation entry points. Returns (loss metrics, decoded batch,
+    DetectionMetrics, COCOmAP results)."""
+    loss_metrics, preds, anchors, strides = eval_step(state, batch)
+    decoded = decode_predictions(preds, anchors, strides,
+                                 conf_threshold=conf, use_nms=use_nms)
+    greedy, coco = DetectionMetrics(num_classes), COCOmAP(num_classes)
+    scores = decoded.scores.cpu().numpy()
+    valid = decoded.valid.cpu().numpy()
+    for i, (dets, gt) in enumerate(zip(decoded_to_lists(decoded),
+                                       ground_truth_lists(batch))):
+        greedy.update(dets, gt)
+        coco.update(dets, scores[i][valid[i]], gt)
+    return ({k: float(v) for k, v in loss_metrics.items()}, decoded,
+            greedy.compute(), coco.compute())
+
+
+def widen_cls_logits(detector, x: torch.Tensor) -> tuple:
+    """Scale the cls towers' logit weights of ``detector`` by a power of two
+    (exact to undo) until the class logits of ``x`` through the conv chain
+    spread by at least 1 around the bias prior. Random weights leave every
+    class logit at the prior, and a comparison of such logits says nothing
+    of the tower before them. Returns ``(factor, chain's class logits)``."""
+    head = detector.model.head
+    head.fused_cls_tower = False
+    factor = 1.0
+    while True:
+        cls = detector(x)[0][..., 4 * head.reg_max:].float()
+        if (cls - CLS_BIAS).abs().max().item() >= 1.0:
+            return factor, cls
+        check(factor < 2.0 ** 60, "class logits do not spread")
+        scale_cls_logits(head, 16.0)
+        factor *= 16.0
+
+
+def scale_cls_logits(head, factor: float) -> None:
+    with torch.no_grad():
+        for i in range(len(head.in_chs)):
+            getattr(head, f"cls{i}_out").weight.mul_(factor)
+    head.pack_cls_tower()
+
+
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a * b).sum() / (a.norm() * b.norm()))
 
@@ -305,6 +419,11 @@ def train_engine(width, depth, csp, num_classes, precision, device, seed,
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
+    # COCOmAP.compute forks worker processes once it holds 2048 per-class
+    # records; this process holds a CUDA context, which a forked child must
+    # not touch. The batches here stay far below that size, and one worker
+    # keeps it so whatever their size.
+    os.environ["COCO_MAP_WORKERS"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -355,17 +474,28 @@ def main() -> None:
 
     # ------------------------------------------- 4. K2 against its twin
     rng = np.random.RandomState(SEED)
-    nms_mismatch = 0
+    nms_mismatch = nms_single_mismatch = 0
     for n, k in ((8, 1024), (3, 300)):
         boxes, valid = nms_pool(n, k, 0.45, rng)
         boxes_d = torch.from_numpy(boxes).to(dev)
         valid_d = torch.from_numpy(valid).to(dev)
-        keep = nms_kernel.nms_keep(boxes_d, valid_d, 0.45)
+        keep = nms_kernel.nms_keep_batched(boxes_d, valid_d, 0.45)
         torch.cuda.synchronize()
         ref = nms_kernel.nms_keep_reference(boxes_d, valid_d, 0.45)
         mismatch = int((keep != ref).sum())
         check(mismatch == 0, f"NMS keep differs at N={n} K={k}: "
               f"{mismatch} entries")
+        # K3, the single-image route, on each image of the same pools
+        # (and on the whole pool at once: it takes any N)
+        for img in list(range(n)) + [slice(None)]:
+            one = boxes_d[img].reshape(-1, k, 4).contiguous()
+            one_valid = valid_d[img].reshape(-1, k).contiguous()
+            keep_one = nms_kernel.nms_keep_single(one, one_valid, 0.45)
+            torch.cuda.synchronize()
+            wrong = int((keep_one != ref[img].reshape(-1, k)).sum())
+            check(wrong == 0, f"single-image NMS keep differs at N={n} "
+                  f"K={k}, image {img}: {wrong} entries")
+            nms_single_mismatch += wrong
         keep_np = keep.cpu().numpy()
         for img in range(n - 1):
             for slot in range(3):
@@ -375,8 +505,17 @@ def main() -> None:
                         f"boundary pair {slot} of image {img} mis-kept")
         check(not keep_np[-1].any(), "an all-invalid image kept a box")
         nms_mismatch += mismatch
-        log(f"phase 4 nms N={n} K={k}: keep-masks equal "
-            f"({int(keep.sum())} kept)")
+        log(f"phase 4 nms N={n} K={k}: keep-masks of the batched kernel, "
+            f"of the single-image kernels (image by image and all at once) "
+            f"and of the twin equal ({int(keep.sum())} kept)")
+    before = read_counts()
+    routed = nms_kernel.nms_keep(boxes_d[:1].contiguous(),
+                                 valid_d[:1].contiguous(), 0.45)
+    after = read_counts()
+    check(routed.equal(ref[:1])
+          and after["nms_single"] == before["nms_single"] + 1
+          and after["nms_batched"] == before["nms_batched"],
+          "nms_keep did not send one image to the single-image kernels")
 
     # ------------------------------------------- 4b. K4 against its twin
     # the same two shapes, with random cotangents for out and v
@@ -437,6 +576,81 @@ def main() -> None:
     do_x = torch.randn(b, t, nh * dh, generator=gen).to(dev, torch.bfloat16)
     dv_x = torch.randn(b, t, nh * dh, generator=gen).to(dev, torch.bfloat16)
 
+    # ------------------------------------------- 4c. K5 against its twin
+    # the x preset's p5 map at batch 8, and a ragged map narrower than the
+    # pooling window reaches, each with ±inf entries, then with a NaN
+    sppf_mismatch = 0
+    for shape in ((SERVE_BATCH, 384, 20, 20), (2, 40, 13, 7)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = channels_last(shape, dtype, gen, dev)
+            x[0, 3, 2, 1] = float("inf")
+            x[1, 5, 0, 0] = -float("inf")
+            x[1, 7, 4:9, 1:6] = -float("inf")
+            got = sppf_kernel.sppf_pyramid(x)
+            torch.cuda.synchronize()
+            ref = sppf_kernel.sppf_pyramid_reference(x)
+            check(got.shape == ref.shape and got.dtype == dtype
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  f"SPPF pyramid result {tuple(got.shape)} {got.dtype}")
+            check(torch.equal(got, ref),
+                  f"SPPF pyramid differs from its twin {shape} {dtype}")
+            sppf_mismatch += int((got != ref).sum())
+            x[0, 1, 4, 4] = float("nan")
+            got = sppf_kernel.sppf_pyramid(x)
+            ref = sppf_kernel.sppf_pyramid_reference(x)
+            nans = int(torch.isnan(got).sum())
+            check(nans > 1 and torch.equal(torch.isnan(got), torch.isnan(ref))
+                  and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0)),
+                  f"SPPF pyramid with a NaN differs {shape} {dtype}")
+            log(f"phase 4c sppf {shape} {dtype}: bit-exact, with ±inf and "
+                f"with a NaN (spread to {nans} outputs)")
+
+    # ------------------------------------------- 4d. K6 against its twin
+    # the x preset's three head levels at batch 8, and a ragged map whose
+    # tiles hang over the border; limits: fp32 atol/rtol 1e-4; bf16 against
+    # the twin on the card, which rounds where the kernel rounds, within
+    # 1e-2 of the largest logit (at most one bf16 step there) and 1e-4 of it
+    # on average; bf16 against the CPU's twin within 3e-2 of it
+    tower_err = {}
+    x_levels = ((SERVE_BATCH, 384, 80, 80), (SERVE_BATCH, 768, 40, 40),
+                (SERVE_BATCH, 768, 20, 20))
+    for shape, mid, nc in [(s, 384, NUM_CLASSES) for s in x_levels] \
+            + [((2, 128, 13, 7), 128, 17)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = channels_last(shape, dtype, gen, dev)
+            params = tower_params(shape[1], mid, nc, dtype, gen, dev)
+            got = head_kernel.cls_tower(x, *params)
+            torch.cuda.synchronize()
+            refs = {"twin": head_kernel.cls_tower_reference(x, *params)}
+            if shape[0] < SERVE_BATCH:
+                # the card's convs may sum as the kernel does; the CPU's
+                # twin is an implementation that shares nothing with it
+                refs["twin on the CPU"] = head_kernel.cls_tower_reference(
+                    x.cpu(), *[(k.cpu(), b.cpu()) for k, b in params]).to(dev)
+            check(got.shape == (shape[0], nc, *shape[2:])
+                  and got.dtype == dtype
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  f"cls tower result {tuple(got.shape)} {got.dtype}")
+            for name, ref in refs.items():
+                g, r = got.float(), ref.float()
+                err = (g - r).abs().max().item()
+                mean_err = (g - r).abs().mean().item()
+                top = r.abs().max().item()
+                if dtype == torch.float32:
+                    ok = torch.allclose(g, r, atol=1e-4, rtol=1e-4)
+                elif name == "twin":
+                    ok = err < 1e-2 * top and mean_err < 1e-4 * top
+                else:
+                    ok = err < 3e-2 * top
+                check(bool(torch.isfinite(g).all()) and ok,
+                      f"cls tower differs from its {name} {shape} {dtype}: "
+                      f"max abs err {err}, mean {mean_err}, largest logit "
+                      f"{top}")
+                log(f"phase 4d cls tower {shape} {dtype} vs {name}: max abs "
+                    f"err {err}, mean {mean_err} (largest logit {top})")
+                if name == "twin":
+                    tower_err[shape, dtype] = err
+
     # ------------------------------------------- 5. full-width serving
     p = PRESETS["x"]
     det = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
@@ -452,20 +666,20 @@ def main() -> None:
     single = torch.randint(0, 256, (HW, HW, 3), generator=img_gen,
                            dtype=torch.uint8).numpy()
 
-    attention.psa_attention.launches = 0
-    nms_kernel.nms_keep.launches = 0
+    reset_counts()
     result = det.serve(batch, conf_thres=POOL_CONF, device_preprocess=True)
     torch.cuda.synchronize()
-    serve_launches = (attention.psa_attention.launches,
-                      nms_kernel.nms_keep.launches)
+    serve_launches = read_counts()
     dets = det.inference(single, conf_thres=POOL_CONF)
     torch.cuda.synchronize()
-    launches = {"attention": attention.psa_attention.launches,
-                "nms": nms_kernel.nms_keep.launches}
-    check(serve_launches == (2, 1),
-          f"serve launched (attention, nms) {serve_launches}, want (2, 1)")
-    check(launches == {"attention": 4, "nms": 2},
-          f"serve + inference launched {launches}, want attention 4, nms 2")
+    launches = read_counts()
+    check(serve_launches == counts(attention=2, nms_batched=1, sppf=1),
+          f"serve launched {serve_launches}, want attention 2, batched NMS "
+          f"1, SPPF 1")
+    check(launches == counts(attention=4, nms_batched=1, nms_single=1,
+                             sppf=2),
+          f"serve + inference launched {launches}, want attention 4, SPPF "
+          f"2, one batched and one single-image NMS")
 
     nv = result.num_valid.cpu()
     max_det = min(300, num_anchors((HW, HW)))
@@ -484,6 +698,76 @@ def main() -> None:
     log(f"phase 5 serve B={SERVE_BATCH}: candidates above {POOL_CONF} "
         f"{n_cand} (pool 1024), detections {nv.tolist()}; inference: "
         f"{len(dets[0])} detections; launches {launches}")
+
+    # ------------------------------- 5b. optimised serving, full width
+    # init → fuse → optimize_for_serving (space-to-depth stem, merged C3K
+    # convs), then the fused cls tower on top; same seed as `det`
+    opt = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
+                   precision="bfloat16", input_size=(HW, HW), device="cuda")
+    opt.init(SEED)
+    opt.fuse().optimize_for_serving()
+    state_keys = list(opt.model.state_dict())
+    n_merged = sum(k.endswith(".conv12.conv.weight") for k in state_keys)
+    check(opt.model.net.p1_conv.conv.weight.shape[1:] == (12, 2, 2)
+          and n_merged > 0
+          and "net.p2_csp.m0.conv1.conv.weight" in state_keys,
+          "optimize_for_serving: stem not space-to-depth, no merged C3K, "
+          "or the narrow p2 C3K merged")
+    norm_batch = normalize(batch)
+    preds_plain = det(norm_batch)[0].float()
+    preds_opt = opt(norm_batch)[0].float()
+    top = preds_plain.abs().max().item()
+    opt_err = (preds_opt - preds_plain).abs().max().item()
+    check(opt_err < 3e-2 * top, f"bf16 predictions: optimised vs fused "
+          f"{opt_err}, limit 3e-2 of {top}")
+    # the fused cls tower against the conv chain, on logits widened so that
+    # they depend on the tower; the weights are put back after
+    widen, cls_chain = widen_cls_logits(opt, norm_batch)
+    opt.model.head.fused_cls_tower = True
+    cls_k6 = opt(norm_batch)[0][..., 4 * opt.model.head.reg_max:].float()
+    scale_cls_logits(opt.model.head, 1.0 / widen)
+    k6_top = cls_chain.abs().max().item()
+    k6_err = (cls_k6 - cls_chain).abs().max().item()
+    k6_mean_err = (cls_k6 - cls_chain).abs().mean().item()
+    check(bool(torch.isfinite(cls_k6).all()) and k6_err < 3e-2 * k6_top
+          and k6_mean_err < 1e-3 * k6_top,
+          f"bf16 class logits (weights x{widen}): fused cls tower vs conv "
+          f"chain {k6_err}, mean {k6_mean_err}, limits 3e-2 and 1e-3 of "
+          f"{k6_top}")
+    check(torch.equal(opt(norm_batch)[0][..., :4 * opt.model.head.reg_max]
+                      .float(), preds_opt[..., :4 * opt.model.head.reg_max]),
+          "the fused cls tower changed the box logits")
+    reset_counts()
+    result_opt = opt.serve(batch, conf_thres=POOL_CONF,
+                           device_preprocess=True)
+    torch.cuda.synchronize()
+    opt_serve_launches = read_counts()
+    dets_opt = opt.inference(single, conf_thres=POOL_CONF)
+    torch.cuda.synchronize()
+    opt_launches = read_counts()
+    check(opt_serve_launches == counts(attention=2, nms_batched=1, sppf=1,
+                                       cls_tower=6),
+          f"optimised serve launched {opt_serve_launches}, want attention "
+          f"2, SPPF 1, cls tower 6 (2 stages x 3 levels), batched NMS 1")
+    check(opt_launches == counts(attention=4, nms_batched=1, nms_single=1,
+                                 sppf=2, cls_tower=12),
+          f"optimised serve + inference launched {opt_launches}; the "
+          f"single request must take the single-image NMS and no batched")
+    for name in result_opt._fields:
+        value = getattr(result_opt, name)
+        if value.is_floating_point():
+            check(bool(torch.isfinite(value).all()),
+                  f"optimised serve: non-finite {name}")
+    check(int(result_opt.num_valid.min()) > 0 and len(dets_opt) == 1
+          and dets_opt[0].shape[1] == 6 and len(dets_opt[0]) > 0,
+          "optimised serve or inference returned no detection")
+    log(f"phase 5b x preset fused+optimised bf16: {n_merged} merged C3Ks, "
+        f"s2d stem; predictions vs fused max abs err {opt_err} (limit 3e-2 "
+        f"of {top}); class logits with their weights x{widen}, fused cls "
+        f"tower vs its conv chain: max abs err {k6_err}, mean "
+        f"{k6_mean_err} (limits 3e-2 and 1e-3 of {k6_top}); detections {result_opt.num_valid.cpu().tolist()}, "
+        f"inference {len(dets_opt[0])}; launches serve "
+        f"{opt_serve_launches}, serve + inference {opt_launches}")
 
     # ------------------------------------------- 6. card against CPU
     gpu32 = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
@@ -527,12 +811,53 @@ def main() -> None:
           "end-to-end detection classes differ")
     box_err = (e2e_g.boxes.cpu() - e2e_c.boxes).abs().max().item()
     check(box_err <= 1e-2, f"end-to-end boxes differ by {box_err} px")
+    # the exact transforms, fp32 on the card: same predictions (1e-4, the
+    # merged and space-to-depth convs sum in another order) and the same
+    # detections; the fused cls tower on top within the same limit
+    opt32 = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
+                     precision="float32", input_size=(HW, HW), device="cuda")
+    opt32.init(SEED)
+    opt32.optimize_for_serving().fuse()        # the other order than 5b
+    check(any(".conv12." in k for k in opt32.model.state_dict()),
+          "fuse() after optimize_for_serving() did not merge the C3Ks")
+    preds_o, _, _ = opt32(norm)
+    opt32_err = (preds_o - preds_g).abs().max().item()
+    check(torch.allclose(preds_o, preds_g, atol=1e-4 * max(scale, 1.0),
+                         rtol=1e-4),
+          f"fp32 predictions: fused+optimised vs fused differ by {opt32_err}")
+    widen32, cls_o = widen_cls_logits(opt32, norm)
+    opt32.model.head.fused_cls_tower = True
+    cls_k = opt32(norm)[0][..., 4 * opt32.model.head.reg_max:]
+    scale_cls_logits(opt32.model.head, 1.0 / widen32)
+    k6_32_top = cls_o.abs().max().item()
+    k6_32_err = (cls_k - cls_o).abs().max().item()
+    check(torch.allclose(cls_k, cls_o, atol=1e-4 * max(k6_32_top, 1.0),
+                         rtol=1e-4),
+          f"fp32 class logits (weights x{widen32}): fused cls tower vs conv "
+          f"chain differ by {k6_32_err}, largest {k6_32_top}")
+    for label, on in (("conv chain", False), ("fused cls tower", True)):
+        opt32.model.head.fused_cls_tower = on
+        e2e_o = opt32.serve(image.to(dev), conf_thres=conf,
+                            device_preprocess=True)
+        check(int(e2e_o.num_valid[0]) == n_g
+              and torch.equal(e2e_o.classes, e2e_g.classes)
+              and torch.equal(e2e_o.valid, e2e_g.valid),
+              f"fused+optimised ({label}) and fused serve give other "
+              f"detections")
+        o_box_err = (e2e_o.boxes - e2e_g.boxes).abs().max().item()
+        check(o_box_err <= 1e-2, f"fused+optimised ({label}) boxes differ "
+              f"by {o_box_err} px")
+    log(f"phase 6 fp32 fused+optimised vs fused on the card: preds max abs "
+        f"err {opt32_err} (limit 1e-4 of max(|preds|, 1)); class logits "
+        f"with their weights x{widen32}, fused cls tower vs conv chain "
+        f"{k6_32_err} (limit 1e-4 of {k6_32_top}); detections equal, boxes within "
+        f"{o_box_err} px")
     log(f"phase 6 fp32 card vs CPU (TF32 off): preds max abs err {pred_err} "
         f"(tolerance {pred_tol}, |preds| max {scale}); NMS on equal inputs "
         f"identical ({int(res_c.num_valid[0])} detections at {POOL_CONF}); "
         f"end to end at conf {conf:.6f}: {n_g} detections each, classes "
         f"equal, boxes within {box_err} px; CPU forward {cpu_s:.1f} s")
-    del gpu32, cpu32
+    del gpu32, cpu32, opt32
 
     # ------------------------------------------- 6b. full-width training
     # x preset, 640², bf16: 5 steps with the task-aligned assigner, then 2
@@ -549,9 +874,7 @@ def main() -> None:
                 "cuda", SEED, "tal")
             tbatch = train_batch(train_n, HW, TRAIN_MAX_BOXES, NUM_CLASSES,
                                  SEED + 2, dev)
-            attention.psa_attention.launches = 0
-            attention.psa_attention_bwd.launches = 0
-            nms_kernel.nms_keep.launches = 0
+            reset_counts()
             tal_metrics = []
             for _ in range(tal_steps):
                 state, metrics = tal_step(state, tbatch)
@@ -577,14 +900,13 @@ def main() -> None:
         nearest_metrics.append({k: float(v) for k, v in metrics.items()})
     torch.cuda.synchronize()
     train_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    train_launches = {"attention": attention.psa_attention.launches,
-                      "attention_bwd": attention.psa_attention_bwd.launches,
-                      "nms": nms_kernel.nms_keep.launches}
+    train_launches = read_counts()
     steps = tal_steps + nearest_steps
-    check(train_launches == {"attention": 2 * steps,
-                             "attention_bwd": 2 * steps, "nms": 0},
+    check(train_launches == counts(attention=2 * steps,
+                                   attention_bwd=2 * steps),
           f"{steps} train steps launched {train_launches}, want attention "
-          f"and attention_bwd {2 * steps} each (2 per step), nms 0")
+          f"and attention_bwd {2 * steps} each (2 per step) and no other "
+          f"kernel (a training forward keeps the max_pool2d chain)")
     for i, metrics in enumerate(tal_metrics + nearest_metrics):
         check(all(np.isfinite(v) for v in metrics.values()),
               f"train step {i + 1}: non-finite metric in {metrics}")
@@ -611,6 +933,47 @@ def main() -> None:
         f"total_loss {[m['total_loss'] for m in nearest_metrics]}; qkv "
         f"weight |grad| max {qkv_grads}; launches {train_launches}; peak "
         f"memory {train_peak_gb:.2f} GiB")
+
+    # ------------------------------------------- 6d. full-width evaluation
+    # the state trained above, the same batch: eval step (EMA weights,
+    # running statistics), decode without and with NMS, both metrics. The
+    # gate is the low one of serving: after 7 steps no score reaches 0.25.
+    eval_step = make_eval_step(
+        model, DetectionLoss(LossConfig(num_classes=NUM_CLASSES,
+                                        assigner="tal")))
+    eval_launches = counts()
+    eval_results = {}
+    for use_nms in (False, True):
+        reset_counts()
+        loss_metrics, decoded, greedy, coco = evaluate(
+            eval_step, state, tbatch, NUM_CLASSES, POOL_CONF, use_nms)
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = counts(attention=2, sppf=1, nms_batched=int(use_nms))
+        check(got == want, f"eval step + decode (use_nms={use_nms}) "
+              f"launched {got}, want {want}")
+        eval_launches = {k: eval_launches[k] + v for k, v in got.items()}
+        check(model.training, "the eval step left the model in eval mode")
+        check(decoded.boxes_xywh.shape == (train_n, 100, 4)
+              and int(decoded.valid.sum()) > 0
+              and bool(torch.isfinite(decoded.boxes_xywh).all()),
+              f"decode (use_nms={use_nms}) gave no finite detections")
+        for name, values in (("loss", loss_metrics), ("greedy", greedy),
+                             ("coco", coco)):
+            check(all(np.isfinite(v) for v in values.values()),
+                  f"eval (use_nms={use_nms}): non-finite {name} metric in "
+                  f"{values}")
+        check(0 < greedy["total_predictions"] <= int(decoded.valid.sum())
+              and greedy["total_ground_truths"]
+              <= int(tbatch["gt_mask"].sum()),
+              f"DetectionMetrics counted {greedy}")
+        eval_results[use_nms] = (greedy, coco)
+        log(f"phase 6d x preset eval B={train_n} use_nms={use_nms} at conf "
+            f"{POOL_CONF}: loss {loss_metrics}; DetectionMetrics {greedy}; "
+            f"COCOmAP {coco}; launches {got}")
+    check(eval_results[True][0]["total_predictions"]
+          <= eval_results[False][0]["total_predictions"],
+          "NMS in the decode added predictions")
 
     # ------------------------------------------- 6c. train step, card vs CPU
     small_metrics, small_grads = {}, {}
@@ -642,6 +1005,67 @@ def main() -> None:
         f"largest, {g_max}); metrics card {small_metrics['cuda']}")
     del small, small_state, small_step, small_grads
 
+    # ------------------------------------------- 6e. evaluation, card vs CPU
+    # the small model, fp32, the same seeded weights on both devices: the same
+    # decoded boxes (1e-3 of the largest coordinate) and identical metric
+    # counters, with the gate in a wide gap of the CPU's scores
+    small_eval = {}
+    conf_small = None
+    for device in ("cpu", "cuda"):
+        small, _, small_state, _ = train_engine(
+            SMALL["width"], SMALL["depth"], SMALL["csp"],
+            SMALL["num_classes"], "float32", device, SEED, "tal")
+        sbatch = train_batch(SMALL["batch"], SMALL["hw"], SMALL["boxes"],
+                             SMALL["num_classes"], SEED + 3, device,
+                             size=(0.4, 0.9))
+        step_fn = make_eval_step(small, DetectionLoss(LossConfig(
+            num_classes=SMALL["num_classes"], assigner="tal")))
+        # untrained, every class score sits within 1e-7 of the bias prior:
+        # widen the logits' weights so that the scores spread and a gate
+        # can sit in a gap
+        for key, value in small_state.eval_variables.items():
+            if key.startswith("head.cls") and key.endswith("_out.weight"):
+                value.mul_(5000.0)
+        if conf_small is None:
+            _, preds_s, _, _ = step_fn(small_state, sbatch)
+            best = torch.sort(torch.sigmoid(preds_s[..., 64:]).amax(-1)
+                              .flatten(), descending=True).values
+            gaps = best[8:40] - best[9:41]
+            at = 8 + int(gaps.argmax())
+            conf_small = float((best[at] + best[at + 1]) / 2)
+        small_eval[device] = {
+            use_nms: evaluate(step_fn, small_state, sbatch,
+                              SMALL["num_classes"], conf_small, use_nms)
+            for use_nms in (False, True)}
+    for use_nms in (False, True):
+        (loss_c, dec_c, greedy_c, coco_c) = small_eval["cpu"][use_nms]
+        (loss_g, dec_g, greedy_g, coco_g) = small_eval["cuda"][use_nms]
+        check(torch.equal(dec_g.valid.cpu(), dec_c.valid)
+              and torch.equal(dec_g.classes.cpu(), dec_c.classes)
+              and int(dec_c.valid.sum()) > 0,
+              f"small eval (use_nms={use_nms}): card and CPU decode other "
+              f"detections")
+        span = dec_c.boxes_xywh.abs().max().item()
+        dec_err = (dec_g.boxes_xywh.cpu() - dec_c.boxes_xywh).abs().max() \
+            .item()
+        check(dec_err <= 1e-3 * span, f"small eval (use_nms={use_nms}): "
+              f"decoded boxes differ by {dec_err}, largest {span}")
+        counters = ("true_positives", "false_positives", "false_negatives",
+                    "total_predictions", "total_ground_truths")
+        check(all(greedy_g[k] == greedy_c[k] for k in counters),
+              f"small eval (use_nms={use_nms}): metric counters differ, "
+              f"card {greedy_g} vs CPU {greedy_c}")
+        check(all(abs(coco_g[k] - coco_c[k]) <= 1e-6 for k in coco_c),
+              f"small eval (use_nms={use_nms}): COCOmAP differs, card "
+              f"{coco_g} vs CPU {coco_c}")
+        log(f"phase 6e fp32 eval card vs CPU (small model, use_nms="
+            f"{use_nms}, conf {conf_small:.6f}): "
+            f"{int(dec_c.valid.sum())} detections each, boxes within "
+            f"{dec_err} (limit 1e-3 of {span}); counters equal "
+            f"{ {k: greedy_c[k] for k in counters} }; mAP_50 card "
+            f"{coco_g['mAP_50']} vs CPU {coco_c['mAP_50']}")
+    del small, small_state, small_eval
+
     # ------------------------------------------------------ 7. timings
     qkv = qkv_x
     k1_ms = time_ms(lambda: attention.psa_attention(qkv, nh, dk, dh))
@@ -650,12 +1074,8 @@ def main() -> None:
     q4 = qkv.view(b, t, nh, 2 * dk + dh).transpose(1, 2)
     q, kk, vv = q4[..., :dk], q4[..., dk:2 * dk], q4[..., 2 * dk:]
     k1_lib = time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv))
-    k1_bytes = qkv.numel() * 2 + 2 * b * t * nh * dh * 2
-    k1_ops = 2 * b * nh * t * t * (dk + dh)
-    t_bytes = k1_bytes / HBM_BYTES_S * 1e3
-    t_ops = k1_ops / BF16_FLOPS * 1e3
-    k1_bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-                else "operations")
+    k1_bound = roofline(qkv.numel() * 2 + 2 * b * t * nh * dh * 2,
+                        2 * b * nh * t * t * (dk + dh), BF16_FLOPS)
 
     # K2 on the pool the main path hands it: the serve batch's candidates
     boxes_s, scores_s = decode_raw_predictions(
@@ -665,11 +1085,105 @@ def main() -> None:
         conf_thres=POOL_CONF, top_k=1024)
     shifted = (cand_boxes + (cand_classes.float() * MAX_WH)[..., None]
                ).contiguous()
-    keep = nms_kernel.nms_keep(shifted, cand_valid, 0.45)
-    k2_ms = time_ms(lambda: nms_kernel.nms_keep(shifted, cand_valid, 0.45))
+    keep = nms_kernel.nms_keep_batched(shifted, cand_valid, 0.45)
+    k2_ms = time_ms(lambda: nms_kernel.nms_keep_batched(
+        shifted, cand_valid, 0.45))
     k2_plain = time_ms(lambda: nms_kernel.nms_keep_reference(
-        shifted, cand_valid, 0.45), reps=20, warmup=1)
+        shifted, cand_valid, 0.45), reps=10, warmup=1)
     k2_bound = nms_bound_ms(keep)
+
+    # K3 on the pool a single-image request hands it (the first image's),
+    # beside the batched kernel on the same one image
+    one_boxes = shifted[:1].contiguous()
+    one_valid = cand_valid[:1].contiguous()
+    keep_one = nms_kernel.nms_keep_single(one_boxes, one_valid, 0.45)
+    check(torch.equal(keep_one, keep[:1]),
+          "single-image NMS differs from the batched kernel on the serve "
+          "pool")
+    k3_ms = time_ms(lambda: nms_kernel.nms_keep_single(
+        one_boxes, one_valid, 0.45))
+    k3_batched_ms = time_ms(lambda: nms_kernel.nms_keep_batched(
+        one_boxes, one_valid, 0.45))
+    k3_plain = time_ms(lambda: nms_kernel.nms_keep_reference(
+        one_boxes, one_valid, 0.45), reps=10, warmup=1)
+    k3_bound = nms_bound_ms(keep_one)
+    # and on a pool where nearly every box survives (random boxes of 20
+    # classes): the batched kernel then pays a block-wide barrier per box
+    dense_boxes, dense_valid = nms_pool(2, 1024, 0.45,
+                                        np.random.RandomState(SEED + 4))
+    dense_boxes = torch.from_numpy(dense_boxes[:1]).to(dev)
+    dense_valid = torch.from_numpy(dense_valid[:1]).to(dev)
+    dense_keep = nms_kernel.nms_keep_single(dense_boxes, dense_valid, 0.45)
+    check(torch.equal(dense_keep, nms_kernel.nms_keep_batched(
+        dense_boxes, dense_valid, 0.45)), "single-image NMS differs from "
+        "the batched kernel on the dense pool")
+    k3_dense_ms = time_ms(lambda: nms_kernel.nms_keep_single(
+        dense_boxes, dense_valid, 0.45))
+    k3_dense_batched_ms = time_ms(lambda: nms_kernel.nms_keep_batched(
+        dense_boxes, dense_valid, 0.45))
+
+    # K5 at the x preset's p5 map; the library's chain is its twin
+    p5 = channels_last((SERVE_BATCH, 384, 20, 20), torch.bfloat16, gen, dev)
+    k5_ms = time_ms(lambda: sppf_kernel.sppf_pyramid(p5))
+    k5_plain = time_ms(lambda: sppf_kernel.sppf_pyramid_reference(p5))
+
+    def pool_chain():
+        y1 = F.max_pool2d(p5, 5, 1, 2)
+        y2 = F.max_pool2d(y1, 5, 1, 2)
+        return torch.cat([p5, y1, y2, F.max_pool2d(y2, 5, 1, 2)], dim=1)
+
+    k5_lib = time_ms(pool_chain)
+    k5_bound = roofline(5 * p5.numel() * 2, 3 * 8 * p5.numel(), FP32_FLOPS)
+
+    # K6 on what the main path hands it: the three feature maps of the
+    # serve batch and the head's own weights; one call is all three levels
+    # (six launches). The library's version is the head's conv chain.
+    head = opt.model.head
+    with torch.inference_mode():
+        feats = opt.model.fpn(opt.model.net(
+            norm_batch.to(torch.bfloat16).permute(0, 3, 1, 2)))
+        feats = [f.contiguous(memory_format=torch.channels_last)
+                 for f in feats]
+        head.pack_cls_tower()
+        packs = head._cls_packs
+
+        def towers(fn):
+            return [fn(f, *packs[i]) for i, f in enumerate(feats)]
+
+        def chain():
+            return [head._tower(f, f"cls{i}_dw1", f"cls{i}_pw1",
+                                f"cls{i}_dw2", f"cls{i}_pw2", f"cls{i}_out")
+                    for i, f in enumerate(feats)]
+
+        k6_ms = time_ms(lambda: towers(head_kernel.cls_tower), reps=10)
+        k6_plain = time_ms(lambda: towers(head_kernel.cls_tower_reference),
+                           reps=10)
+        k6_lib = time_ms(chain, reps=10)
+        k6_levels = [time_ms(lambda i=i, f=f: head_kernel.cls_tower(
+            f, *packs[i]), reps=10) for i, f in enumerate(feats)]
+    mid, ncls = head.cls_ch, NUM_CLASSES
+    k6_dw_ops = k6_mm_ops = k6_bytes = 0
+    for f in feats:
+        n_pix, cin = f.shape[0] * f.shape[2] * f.shape[3], f.shape[1]
+        k6_dw_ops += 2 * n_pix * 9 * (cin + mid)
+        k6_mm_ops += 2 * n_pix * (cin * mid + mid * mid + mid * ncls)
+        k6_bytes += 2 * (n_pix * (cin + ncls) + 10 * (cin + mid) + cin * mid
+                         + mid * mid + 2 * mid + mid * ncls + ncls)
+    # bf16: the 1x1 products run on the tensor cores, the depthwise taps in
+    # fp32 on the CUDA cores
+    k6_t_ops = (k6_mm_ops / BF16_FLOPS + k6_dw_ops / FP32_FLOPS) * 1e3
+    k6_t_bytes = k6_bytes / HBM_BYTES_S * 1e3
+    k6_bound = (max(k6_t_ops, k6_t_bytes),
+                "operations" if k6_t_ops > k6_t_bytes else "bytes")
+    # the fp32 kernel (CUDA cores throughout) on the same maps and weights
+    feats32 = [f.float().contiguous(memory_format=torch.channels_last)
+               for f in feats]
+    packs32 = [tuple((k.float(), bias.float()) for k, bias in pack)
+               for pack in packs]
+    k6_fp32_ms = time_ms(lambda: [head_kernel.cls_tower(f, *packs32[i])
+                                  for i, f in enumerate(feats32)], reps=5)
+    k6_fp32_bound = roofline(2 * k6_bytes, k6_mm_ops + k6_dw_ops, FP32_FLOPS)
+    del feats32, packs32
 
     # K4 at the x shape, its twin, and the library's attention backward
     k4_ms = time_ms(lambda: attention.psa_attention_bwd(
@@ -681,20 +1195,37 @@ def main() -> None:
     lib_do = do_x.view(b, t, nh, dh).transpose(1, 2)
     k4_lib = time_ms(lambda: torch.autograd.grad(
         lib_out, (lq, lk, lv), lib_do, retain_graph=True))
-    k4_bytes = (2 * qkv.numel() + do_x.numel() + dv_x.numel()) * 2
-    k4_ops = 2 * b * nh * t * t * (3 * dk + 2 * dh)
-    t_bytes = k4_bytes / HBM_BYTES_S * 1e3
-    t_ops = k4_ops / BF16_FLOPS * 1e3
-    k4_bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-                else "operations")
+    k4_bound = roofline(
+        (2 * qkv.numel() + do_x.numel() + dv_x.numel()) * 2,
+        2 * b * nh * t * t * (3 * dk + 2 * dh), BF16_FLOPS)
 
     train_ms = time_ms(lambda: tal_step(state, tbatch), reps=5, warmup=1)
 
-    serve_b = time_ms(lambda: det.serve(batch, conf_thres=POOL_CONF,
-                                        device_preprocess=True))
+    def eval_and_decode():
+        _, preds_e, anchors_e, strides_e = eval_step(state, tbatch)
+        return decode_predictions(preds_e, anchors_e, strides_e,
+                                  conf_threshold=POOL_CONF)
+
+    eval_ms = time_ms(eval_and_decode, reps=5, warmup=1)
+
+    # the three serving variants, each timed once by its median
     one = batch[:1].contiguous()
-    serve_1 = time_ms(lambda: det.serve(one, conf_thres=POOL_CONF,
-                                        device_preprocess=True))
+
+    def serve_of(detector, tower, images):
+        """``serve`` of ``images``, with the fused cls tower set now, for
+        the calls that follow at once."""
+        detector.model.head.fused_cls_tower = tower
+        return lambda: detector.serve(images, conf_thres=POOL_CONF,
+                                      device_preprocess=True)
+
+    variants = (("fused", det, False), ("fused_optimized", opt, False),
+                ("fused_optimized_cls_tower", opt, True))
+    serve_ms = {name: {key: time_ms(serve_of(detector, tower, images))
+                       for key, images in (("b8", batch), ("b1", one))}
+                for name, detector, tower in variants}
+    opt.model.head.fused_cls_tower = False
+    serve_b = serve_ms["fused"]["b8"]
+    serve_1 = serve_ms["fused"]["b1"]
     timing = {
         "card": card,
         "serve_x640_bf16": {
@@ -702,6 +1233,17 @@ def main() -> None:
             "img_per_s": SERVE_BATCH / serve_b * 1e3,
             "conf_thres": POOL_CONF},
         "latency_x640_bf16_b1_ms": serve_1,
+        "serve_variants_ms": serve_ms,
+        "eval_x640_bf16": {"batch": train_n, "step_and_decode_ms": eval_ms},
+        "nms_single_image": {
+            "serve_pool": {"k3_ms": k3_ms, "batched_kernel_ms": k3_batched_ms,
+                           "kept": int(keep_one.sum())},
+            "dense_pool": {"k3_ms": k3_dense_ms,
+                           "batched_kernel_ms": k3_dense_batched_ms,
+                           "kept": int(dense_keep.sum())}},
+        "cls_tower_ms_by_level": k6_levels,
+        "cls_tower_fp32": {"ms": k6_fp32_ms, "bound_ms": k6_fp32_bound[0],
+                           "bound_by": k6_fp32_bound[1]},
         "train_x640_bf16": {
             "batch": train_n, "assigner": "tal", "ms": train_ms,
             "img_per_s": train_n / train_ms * 1e3,
@@ -711,39 +1253,54 @@ def main() -> None:
     log(json.dumps(timing))
     prof = profile_call(lambda: tal_step(state, tbatch), reps=2)
     log(json.dumps({"card": card, "profile_train_batch": train_n, **prof}))
-    for images in (batch, one):
-        prof = profile_call(lambda: det.serve(
-            images, conf_thres=POOL_CONF, device_preprocess=True))
-        log(json.dumps({"card": card, "profile_serve_batch": len(images),
-                        **prof}))
+    for name, detector, tower in variants:
+        for images in (batch, one):
+            prof = profile_call(serve_of(detector, tower, images))
+            log(json.dumps({"card": card, "profile_serve": name,
+                            "batch": len(images), **prof}))
+    opt.model.head.fused_cls_tower = False
+    prof = profile_call(eval_and_decode, reps=2)
+    log(json.dumps({"card": card, "profile_eval_batch": train_n, **prof}))
 
+    paths = {"serve": launches, "train": train_launches,
+             "serve_optimized": opt_launches, "eval": eval_launches}
+
+    def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
+                     library):
+        by_path = {path: table[counter] for path, table in paths.items()}
+        check(sum(by_path.values()) > 0,
+              f"kernel {name} was launched on no path")
+        return {"name": name, "route": "cuda",
+                "source": f"custom_yolo_tpu_torch/ops/cuda/csrc/{source}",
+                "replaces": f"custom_yolo_tpu/ops/{replaces}",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library}
+
+    x_shape = (b, t, nh, dk, dh)
     kernels = [
-        {"name": "psa_attention_fwd", "route": "cuda",
-         "source": "custom_yolo_tpu_torch/ops/cuda/csrc/attention.cu",
-         "replaces": "custom_yolo_tpu/ops/pallas/attention_kernel.py:37",
-         "launches": launches["attention"] + train_launches["attention"],
-         "launches_by_path": {"serve": launches["attention"],
-                              "train": train_launches["attention"]},
-         "max_abs_err": attn_err[(b, t, nh, dk, dh), torch.bfloat16],
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": k1_lib},
-        {"name": "nms_keep_batched", "route": "cuda",
-         "source": "custom_yolo_tpu_torch/ops/cuda/csrc/nms.cu",
-         "replaces": "custom_yolo_tpu/ops/pallas/nms_kernel.py:82",
-         "launches": launches["nms"],
-         "launches_by_path": {"serve": launches["nms"], "train": 0},
-         "max_abs_err": float(nms_mismatch),
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
-        {"name": "psa_attention_bwd", "route": "cuda",
-         "source": "custom_yolo_tpu_torch/ops/cuda/csrc/attention_bwd.cu",
-         "replaces": "custom_yolo_tpu/ops/pallas/attention_kernel.py:90",
-         "launches": train_launches["attention_bwd"],
-         "launches_by_path": {"serve": 0,
-                              "train": train_launches["attention_bwd"]},
-         "max_abs_err": bwd_err[(b, t, nh, dk, dh), torch.bfloat16],
-         "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound[0],
-         "bound_by": k4_bound[1], "library_ms": k4_lib},
+        kernel_entry("psa_attention_fwd", "attention", "attention.cu",
+                     "pallas/attention_kernel.py:37",
+                     attn_err[x_shape, torch.bfloat16], k1_ms, k1_plain,
+                     k1_bound, k1_lib),
+        kernel_entry("nms_keep_batched", "nms_batched", "nms.cu",
+                     "pallas/nms_kernel.py:82", float(nms_mismatch), k2_ms,
+                     k2_plain, k2_bound, None),
+        kernel_entry("nms_keep_single", "nms_single", "nms.cu",
+                     "pallas/nms_kernel.py:34", float(nms_single_mismatch),
+                     k3_ms, k3_plain, k3_bound, None),
+        kernel_entry("psa_attention_bwd", "attention_bwd",
+                     "attention_bwd.cu", "pallas/attention_kernel.py:90",
+                     bwd_err[x_shape, torch.bfloat16], k4_ms, k4_plain,
+                     k4_bound, k4_lib),
+        kernel_entry("sppf_pyramid", "sppf", "sppf.cu",
+                     "pallas/sppf_kernel.py:36", float(sppf_mismatch), k5_ms,
+                     k5_plain, k5_bound, k5_lib),
+        kernel_entry("cls_tower", "cls_tower", "head.cu",
+                     "pallas/head_kernel.py:52",
+                     max(tower_err[s, torch.bfloat16] for s in x_levels),
+                     k6_ms, k6_plain, k6_bound, k6_lib),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

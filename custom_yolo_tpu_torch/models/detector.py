@@ -5,7 +5,9 @@
 holds one model on one device and serves it: ``init`` (seeded weights) or
 ``load_variables`` (a JAX variable tree as numpy, or a train state's
 variables), ``fuse`` (fold each
-BatchNorm into its conv), ``__call__`` (raw head output), ``serve``
+BatchNorm into its conv), ``optimize_for_serving`` (the exact
+output-preserving transforms: space-to-depth stem and merged C3K branch
+convs), ``__call__`` (raw head output), ``serve``
 (forward + DFL decode + class-aware batched NMS, fixed-shape result) and
 ``inference`` (one image in, ``(n, 6)`` detections out).
 :func:`create_train_model` gives the unfused model in training mode for
@@ -22,10 +24,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from custom_yolo_tpu_torch.core.dtypes import DTypePolicy, resolve_policy
-from custom_yolo_tpu_torch.models.backbone import Backbone
+from custom_yolo_tpu_torch.models.backbone import (Backbone,
+                                                   stem_kernel_to_s2d)
 from custom_yolo_tpu_torch.models.head import CLS_BIAS, Head
 from custom_yolo_tpu_torch.models.neck import Neck
-from custom_yolo_tpu_torch.nn.blocks import BN_EPS
+from custom_yolo_tpu_torch.nn.blocks import BN_EPS, MERGE_MIN_HALF
 from custom_yolo_tpu_torch.ops.boxes import dist2bbox
 from custom_yolo_tpu_torch.ops.dfl import dfl_decode
 from custom_yolo_tpu_torch.ops.nms import NMSResult, batched_nms, nms_to_lists
@@ -38,15 +41,21 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 class YoloModel(nn.Module):
     """Backbone + Neck + Head. Input NHWC float; output (preds (N, M,
-    4·reg_max+nc), anchors (M, 2), strides (M, 1))."""
+    4·reg_max+nc), anchors (M, 2), strides (M, 1)). ``s2d_stem`` and
+    ``merged`` select the exactly equivalent serving forms of the stem and
+    of the C3K blocks (``models.backbone``, ``nn.blocks.C3K``); their
+    weights come from :func:`convert_stem_variables` and
+    :func:`merge_c3k_params`."""
 
     def __init__(self, width: Sequence[int], depth: Sequence[int],
                  csp: Sequence[bool], num_classes: int, reg_max: int = 16,
-                 policy: DTypePolicy = DTypePolicy(), fused: bool = False):
+                 policy: DTypePolicy = DTypePolicy(), fused: bool = False,
+                 s2d_stem: bool = False, merged: bool = False):
         super().__init__()
         self.policy = policy
-        self.net = Backbone(width, depth, csp, fused=fused)
-        self.fpn = Neck(width, depth, csp, fused=fused)
+        self.net = Backbone(width, depth, csp, fused=fused,
+                            s2d_stem=s2d_stem, merged=merged)
+        self.fpn = Neck(width, depth, csp, fused=fused, merged=merged)
         self.head = Head(num_classes, (width[3], width[4], width[5]),
                          reg_max=reg_max, fused=fused)
 
@@ -116,6 +125,49 @@ def fuse_state_dict(state: Mapping[str, torch.Tensor]
             out[f"{prefix}.conv.bias"] = bn["bias"] - bn["running_mean"] * scale
         else:
             out[key] = value
+    return out
+
+
+STEM_KEY = "net.p1_conv.conv.weight"
+
+
+def convert_stem_variables(state: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict of a standard model → that of the same model with
+    ``s2d_stem=True``: only the stem kernel is re-expressed
+    (``stem_kernel_to_s2d``), so it works on fused and unfused states
+    alike (counterpart of the reference's ``convert_stem_variables``)."""
+    out = dict(state)
+    stem = state[STEM_KEY]
+    hwio = stem.detach().float().cpu().permute(2, 3, 1, 0).numpy()
+    out[STEM_KEY] = torch.from_numpy(stem_kernel_to_s2d(hwio)).permute(
+        3, 2, 0, 1).contiguous().to(stem.device, stem.dtype)
+    return out
+
+
+def merge_c3k_params(state: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Fused state dict → that of ``merged=True`` modules: every C3K's
+    ``conv1``/``conv2`` (two convs on the same input) become one ``conv12``,
+    kernels and biases concatenated on the output-channel axis (counterpart
+    of the reference's ``merge_c3k_params``). A C3K is told from a C3K2,
+    which also owns ``conv1``/``conv2``, by its ``res0`` child; those with
+    fewer than ``MERGE_MIN_HALF`` channels per branch stay as they are,
+    which is the module's own gate."""
+    suffix = ".conv1.conv.weight"
+    prefixes = [key[:-len(suffix)] for key, value in state.items()
+                if key.endswith(suffix)
+                and f"{key[:-len(suffix)]}.res0.conv1.conv.weight" in state
+                and value.shape[0] >= MERGE_MIN_HALF]
+    out = dict(state)
+    for prefix in prefixes:
+        if f"{prefix}.conv1.bn.weight" in state:
+            raise ValueError("merge_c3k_params expects a fused state (fuse "
+                             "first)")
+        for leaf in ("weight", "bias"):
+            a = out.pop(f"{prefix}.conv1.conv.{leaf}")
+            b = out.pop(f"{prefix}.conv2.conv.{leaf}")
+            out[f"{prefix}.conv12.conv.{leaf}"] = torch.cat([a, b], dim=0)
     return out
 
 
@@ -198,6 +250,12 @@ def decode_raw_predictions(preds: torch.Tensor, anchors: torch.Tensor,
     return boxes, torch.sigmoid(preds[..., 4 * reg_max:])
 
 
+def _has_key(tree: Mapping[str, Any], name: str) -> bool:
+    return any(key == name or (isinstance(value, Mapping)
+                               and _has_key(value, name))
+               for key, value in tree.items())
+
+
 class Detector:
     """One model on one device, with the serving entry points.
 
@@ -220,21 +278,36 @@ class Detector:
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
         self.model: Optional[YoloModel] = None
         self._fused = False
+        self._s2d_stem = False
+        self._merged = False
+        # optimize_for_serving was asked for: fuse() then merges as well
+        self._optimized = False
 
     def _build(self, fused: bool) -> YoloModel:
         return YoloModel(self.width, self.depth, self.csp, self.num_classes,
-                         self.reg_max, self.policy, fused=fused)
+                         self.reg_max, self.policy, fused=fused,
+                         s2d_stem=self._s2d_stem, merged=self._merged)
 
     def _install(self, model: YoloModel, fused: bool) -> None:
         model = model.to(self.device, memory_format=torch.channels_last)
         if fused:
             # folded in fp32; cast once so each conv reads the compute dtype
             model = model.to(self.policy.compute_dtype)
+        if self.model is not None:
+            # the opt-in survives fuse() and optimize_for_serving()
+            model.head.fused_cls_tower = self.model.head.fused_cls_tower
         self.model = model.eval()
         self._fused = fused
 
+    def _rebuild(self, state: Mapping[str, torch.Tensor], fused: bool
+                 ) -> None:
+        model = self._build(fused)
+        model.load_state_dict(state, strict=True)
+        self._install(model, fused)
+
     def init(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Seeded random weights (unfused); returns the state dict."""
+        self._s2d_stem = self._merged = self._optimized = False
         model = self._build(fused=False)
         init_weights(model, seed)
         self._install(model, fused=False)
@@ -244,16 +317,25 @@ class Detector:
         """Load a JAX variable tree given as nested dicts of numpy arrays:
         ``{"params", "batch_stats"}`` (unfused) or ``{"params"}`` (fused);
         or the port's own variables, a flat dict of tensors by state-dict
-        key (``TrainState.eval_variables``), which are copied."""
+        key (``TrainState.eval_variables``), which are copied. A tree that
+        already has the space-to-depth stem (a 2×2 stem kernel) and/or
+        merged C3K convs (``conv12``) is taken as it is."""
         if all(isinstance(v, torch.Tensor) for v in variables.values()):
             fused = not any(".bn." in key for key in variables)
+            self._s2d_stem = variables[STEM_KEY].shape[-1] == 2
+            self._merged = any(".conv12." in key for key in variables)
             model = self._build(fused)
             state = {**model.state_dict(),
                      **{k: v.detach().clone() for k, v in variables.items()}}
         else:
             fused = "batch_stats" not in variables
+            params = variables["params"]
+            stem = params["net"]["p1_conv"]["conv"]["kernel"]
+            self._s2d_stem = tuple(stem.shape[:2]) == (2, 2)
+            self._merged = _has_key(params, "conv12")
             model = self._build(fused)
             state = from_jax_variables(variables, model)
+        self._optimized = self._s2d_stem or self._merged
         model.load_state_dict(state, strict=True)
         self._install(model, fused)
 
@@ -262,10 +344,30 @@ class Detector:
         assert self.model is not None, "call .init() or load weights"
         if self._fused:
             return self
-        model = self._build(fused=True)
-        model.load_state_dict(fuse_state_dict(self.model.state_dict()),
-                              strict=True)
-        self._install(model, fused=True)
+        state = fuse_state_dict(self.model.state_dict())
+        if self._optimized and not self._merged:
+            state = merge_c3k_params(state)
+            self._merged = True
+        self._rebuild(state, fused=True)
+        return self
+
+    def optimize_for_serving(self) -> "Detector":
+        """Apply the exactly output-preserving serving transforms
+        (counterpart of the reference's ``optimize_for_tpu``): the
+        space-to-depth stem — the stem kernel re-expressed, not retrained —
+        and, once fused, the merge of each C3K's ``conv1``/``conv2`` into
+        one conv (:func:`merge_c3k_params`). Composes with :meth:`fuse` in
+        either order: when this runs first, ``fuse`` merges."""
+        assert self.model is not None, "call .init() or load weights"
+        state = self.model.state_dict()
+        if not self._s2d_stem:
+            state = convert_stem_variables(state)
+            self._s2d_stem = True
+        if self._fused and not self._merged:
+            state = merge_c3k_params(state)
+            self._merged = True
+        self._optimized = True
+        self._rebuild(state, self._fused)
         return self
 
     @torch.inference_mode()

@@ -18,10 +18,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from custom_yolo_tpu_torch.ops.attention import psa_attention
+from custom_yolo_tpu_torch.ops.sppf_kernel import (sppf_pyramid,
+                                                   sppf_pyramid_reference)
 
 # BatchNorm constants of the reference: eps 1e-3, torch momentum 0.03
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+
+# C3K horizontal merge gate, the reference's: a C3K whose branches are
+# narrower than this keeps its two separate convs, so that a merged tree of
+# either package loads into the other
+MERGE_MIN_HALF = 64
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -85,20 +92,35 @@ class Residual(nn.Module):
 
 class C3K(nn.Module):
     """CSP sub-block: conv1/conv2 split, two Residual(e=1) on the conv1
-    branch, concat → conv3."""
+    branch, concat → conv3.
 
-    def __init__(self, c_in: int, out_ch: int, fused: bool = False):
+    ``merged=True`` (serving): conv1 and conv2 read the same input and each
+    emit ``half`` channels, so they run as one conv of width ``2·half``
+    (``conv12``) whose output is split. Each output channel is computed
+    as before, so the result is the same. Applies only where ``half >=
+    MERGE_MIN_HALF``; weights from ``models.detector.merge_c3k_params``."""
+
+    def __init__(self, c_in: int, out_ch: int, fused: bool = False,
+                 merged: bool = False):
         super().__init__()
         half = out_ch // 2
-        self.conv1 = ConvBN(c_in, half, fused=fused)
-        self.conv2 = ConvBN(c_in, half, fused=fused)
+        self.merged = merged and half >= MERGE_MIN_HALF
+        if self.merged:
+            self.conv12 = ConvBN(c_in, 2 * half, fused=fused)
+        else:
+            self.conv1 = ConvBN(c_in, half, fused=fused)
+            self.conv2 = ConvBN(c_in, half, fused=fused)
         self.res0 = Residual(half, e=1.0, fused=fused)
         self.res1 = Residual(half, e=1.0, fused=fused)
         self.conv3 = ConvBN(2 * half, out_ch, fused=fused)
 
     def forward(self, x):
-        y = self.res1(self.res0(self.conv1(x)))
-        return self.conv3(torch.cat([y, self.conv2(x)], dim=1))
+        if self.merged:
+            y, z = self.conv12(x).chunk(2, dim=1)
+        else:
+            y, z = self.conv1(x), self.conv2(x)
+        y = self.res1(self.res0(y))
+        return self.conv3(torch.cat([y, z], dim=1))
 
 
 class C3K2(nn.Module):
@@ -106,12 +128,12 @@ class C3K2(nn.Module):
     Residual), concat of all → conv2."""
 
     def __init__(self, c_in: int, out_ch: int, n: int, csp: bool, r: int,
-                 fused: bool = False):
+                 fused: bool = False, merged: bool = False):
         super().__init__()
         hidden = out_ch // r
         self.conv1 = ConvBN(c_in, 2 * hidden, fused=fused)
         for i in range(n):
-            blk = (C3K(hidden, hidden, fused=fused) if csp
+            blk = (C3K(hidden, hidden, fused=fused, merged=merged) if csp
                    else Residual(hidden, e=0.5, fused=fused))
             self.add_module(f"m{i}", blk)
         self.n = n
@@ -126,21 +148,31 @@ class C3K2(nn.Module):
 
 class SPPF(nn.Module):
     """1×1 reduce, three chained 5×5 stride-1 max-pools (−inf borders),
-    4-way concat, 1×1 out."""
+    4-way concat, 1×1 out.
+
+    The pooling pyramid has one route per device: a CUDA tensor that needs
+    no gradient goes to the fused kernel
+    (:func:`ops.sppf_kernel.sppf_pyramid`, bit-exact), a CPU tensor or a
+    training forward to the ``max_pool2d`` chain, which autograd
+    differentiates (the kernel defines no gradient). The kernel pools 5×5
+    windows only, so no other ``k`` is built."""
 
     def __init__(self, c_in: int, out_ch: int, k: int = 5,
                  fused: bool = False):
         super().__init__()
+        if k != 5:
+            raise ValueError(f"SPPF pools 5×5 windows only, got k={k}")
         self.cv1 = ConvBN(c_in, c_in // 2, fused=fused)
         self.cv2 = ConvBN(4 * (c_in // 2), out_ch, fused=fused)
         self.k = k
 
     def forward(self, x):
         x = self.cv1(x)
-        y1 = F.max_pool2d(x, self.k, 1, self.k // 2)
-        y2 = F.max_pool2d(y1, self.k, 1, self.k // 2)
-        y3 = F.max_pool2d(y2, self.k, 1, self.k // 2)
-        return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+        needs_grad = torch.is_grad_enabled() and x.requires_grad
+        if x.device.type == "cpu" or needs_grad:
+            return self.cv2(sppf_pyramid_reference(x, self.k))
+        return self.cv2(sppf_pyramid(
+            x.contiguous(memory_format=torch.channels_last)))
 
 
 class Attention(nn.Module):

@@ -32,6 +32,8 @@ SOURCES = {
     "attention": ("attention.cu", ()),
     "attention_bwd": ("attention_bwd.cu", ()),
     "nms": ("nms.cu", ("-fmad=false",)),
+    "sppf": ("sppf.cu", ()),
+    "head": ("head.cu", ()),
 }
 
 # dynamic shared memory one block may opt into on Hopper (sm_90)

@@ -1,10 +1,12 @@
-"""Batched greedy-NMS keep mask: the CUDA kernel's wrapper and its plain
-twin.
+"""Greedy-NMS keep mask: the CUDA kernels' wrappers and their plain twin.
 
 Counterpart of ``custom_yolo_tpu/ops/pallas/nms_kernel.py::
-nms_keep_pallas_batched`` and of ``custom_yolo_tpu/ops/nms.py::_suppress``.
+nms_keep_pallas_batched`` (:func:`nms_keep_batched`) and ``nms_keep_pallas``
+(:func:`nms_keep_single`), and of ``custom_yolo_tpu/ops/nms.py::_suppress``.
 Boxes ``(N, K, 4)`` xyxy, score-sorted and class-offset; ``valid (N, K)``
 bool → ``keep (N, K)`` bool, the exact sequential greedy keep-set.
+:func:`nms_keep` sends one image to the single-image kernels and a batch
+to the batched one; both give the same keep-set as the twin.
 """
 
 from __future__ import annotations
@@ -31,12 +33,7 @@ def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
-             iou_thres: float) -> torch.Tensor:
-    """Greedy-NMS keep mask: the twin for CPU tensors, the CUDA kernel
-    (``ops/cuda/csrc/nms.cu``) for CUDA tensors."""
-    if boxes.device.type == "cpu":
-        return nms_keep_reference(boxes, valid, iou_thres)
+def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
     if boxes.device.type != "cuda" or valid.device != boxes.device:
         raise ValueError(f"nms_keep: boxes on {boxes.device} and valid on "
                          f"{valid.device}; both must be on one CUDA device")
@@ -49,14 +46,27 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(valid.shape)}; want (N, K, 4) / (N, K)")
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep: boxes and valid must be contiguous")
+
+
+def _smem_need(lib, name: str, k: int) -> int:
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return fn(k)
+
+
+def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
+                     iou_thres: float) -> torch.Tensor:
+    """One block per image (``nms_keep_kernel`` of ``ops/cuda/csrc/nms.cu``):
+    the twin for CPU tensors, the kernel for CUDA tensors."""
+    if boxes.device.type == "cpu":
+        return nms_keep_reference(boxes, valid, iou_thres)
+    _check(boxes, valid)
     n, k, _ = boxes.shape
     keep = torch.empty(n, k, dtype=torch.bool, device=boxes.device)
     if n == 0 or k == 0:
         return keep
     lib = build.load("nms")
-    smem_bytes = lib.nms_keep_smem_bytes
-    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_longlong
-    need = smem_bytes(k)
+    need = _smem_need(lib, "nms_keep_smem_bytes", k)
     if need > build.SMEM_LIMIT:
         raise ValueError(
             f"nms_keep: a pool of K={k} needs {need} bytes of shared memory "
@@ -69,8 +79,51 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     status = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), n, k,
                 iou_thres, torch.cuda.current_stream(boxes.device).cuda_stream)
     build.check(lib, status, "nms_keep_batched launch")
-    nms_keep.launches += 1
+    nms_keep_batched.launches += 1
     return keep
 
 
-nms_keep.launches = 0
+def nms_keep_single(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_thres: float) -> torch.Tensor:
+    """The bitmask route (``nms_mask_kernel`` + ``nms_sweep_kernel`` of
+    ``ops/cuda/csrc/nms.cu``), which spreads one image's IoU tests over the
+    card: the twin for CPU tensors, the kernels for CUDA tensors."""
+    if boxes.device.type == "cpu":
+        return nms_keep_reference(boxes, valid, iou_thres)
+    _check(boxes, valid)
+    n, k, _ = boxes.shape
+    keep = torch.empty(n, k, dtype=torch.bool, device=boxes.device)
+    if n == 0 or k == 0:
+        return keep
+    lib = build.load("nms")
+    need = _smem_need(lib, "nms_sweep_smem_bytes", k)
+    if need > build.SMEM_LIMIT:
+        raise ValueError(
+            f"nms_keep: a pool of K={k} needs {need} bytes of shared memory "
+            f"for 64 rows of the bit matrix; the limit is {build.SMEM_LIMIT} "
+            f"(K ≤ {64 * (build.SMEM_LIMIT // 520)})")
+    words = (k + 63) // 64
+    mask = torch.empty(n, k, words, dtype=torch.int64, device=boxes.device)
+    fn = lib.nms_keep_bitmask
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                mask.data_ptr(), n, k, iou_thres,
+                torch.cuda.current_stream(boxes.device).cuda_stream)
+    build.check(lib, status, "nms_keep_bitmask launch")
+    nms_keep_single.launches += 1
+    return keep
+
+
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
+             iou_thres: float) -> torch.Tensor:
+    """Greedy-NMS keep mask: one image goes to :func:`nms_keep_single`, a
+    batch to :func:`nms_keep_batched`."""
+    if boxes.dim() == 3 and boxes.shape[0] == 1:
+        return nms_keep_single(boxes, valid, iou_thres)
+    return nms_keep_batched(boxes, valid, iou_thres)
+
+
+nms_keep_batched.launches = 0
+nms_keep_single.launches = 0

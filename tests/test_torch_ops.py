@@ -151,7 +151,8 @@ def test_nms_twin_matches_jax_kernel_exactly(n, k):
             if valid[img, 2 * slot] and valid[img, 2 * slot + 1]:
                 assert a_kept and b_kept == (slot % 3 != 2)
     assert not keep_t[-1].any()
-    assert nms_kernel.nms_keep.launches == 0
+    assert nms_kernel.nms_keep_batched.launches == 0
+    assert nms_kernel.nms_keep_single.launches == 0
 
 
 def _nms_inputs(n=3, m=200, nc=5, seed=0):
@@ -274,7 +275,8 @@ def test_wrappers_refuse_instead_of_falling_back():
             torch.empty(1, device="cuda")
     assert attention.psa_attention.launches == 0
     assert attention.psa_attention_bwd.launches == 0
-    assert nms_kernel.nms_keep.launches == 0
+    assert nms_kernel.nms_keep_batched.launches == 0
+    assert nms_kernel.nms_keep_single.launches == 0
 
 
 def test_build_names_libraries_by_source_hash():
@@ -284,7 +286,8 @@ def test_build_names_libraries_by_source_hash():
         assert path.parent == build.BUILD_DIR and path.name.startswith(name)
         src, flags = build.SOURCES[name]
         assert (build.CSRC / src).exists()
-    assert set(build.SOURCES) == {"attention", "attention_bwd", "nms"}
+    assert set(build.SOURCES) == {"attention", "attention_bwd", "nms", "sppf",
+                                  "head"}
     assert "-fmad=false" in build.SOURCES["nms"][1]
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     ignored = (REPO / ".gitignore").read_text()
@@ -308,7 +311,12 @@ def test_port_imports_no_jax_or_reference_package():
             "custom_yolo_tpu_torch/train/losses.py",
             "custom_yolo_tpu_torch/train/optim.py",
             "custom_yolo_tpu_torch/train/train_state.py",
-            "custom_yolo_tpu_torch/train/train_step.py"} <= names
+            "custom_yolo_tpu_torch/train/train_step.py",
+            "custom_yolo_tpu_torch/eval/decode.py",
+            "custom_yolo_tpu_torch/eval/metrics.py",
+            "custom_yolo_tpu_torch/eval/coco_map.py",
+            "custom_yolo_tpu_torch/ops/sppf_kernel.py",
+            "custom_yolo_tpu_torch/ops/head_kernel.py"} <= names
 
 
 def test_port_detector_runs_without_jax_loaded():
