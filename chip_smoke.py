@@ -3,16 +3,18 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``custom_yolo_tpu_torch/
-ops/cuda/csrc``, holds each against its plain PyTorch twin on the card,
-serves the full-width ``x`` preset (640², 172 classes, bf16, random seeded
-weights) through ``Detector.serve`` and ``Detector.inference``, fused and
-then also through ``optimize_for_serving`` with the fused cls tower on,
-trains the same preset for a few steps (``create_train_model`` /
-``build_optimizer`` / ``TrainState.create`` / ``make_train_step``, TAL then
-nearest, EMA and warm-up on), evaluates the trained state
-(``make_eval_step`` → ``decode_predictions`` → ``DetectionMetrics`` /
-``COCOmAP``), all while counting kernel launches, compares the card with
-the CPU in fp32 for serving, for one train step and for evaluation, and
+ops/cuda/csrc``, holds each against its plain PyTorch twin on the card
+(and the int8 contraction's routes against their float64 twin), serves the
+full-width ``x`` preset (640², 172 classes, bf16, random seeded weights)
+through ``Detector.serve`` and ``Detector.inference``, fused, then also
+through ``optimize_for_serving`` with the fused cls tower on, then int8
+(``quantize(stochastic=True)`` → ``calibrate``), trains the same preset
+for a few steps (``create_train_model`` / ``build_optimizer`` /
+``TrainState.create`` / ``make_train_step``, TAL then nearest, EMA and
+warm-up on), evaluates the trained state (``make_eval_step`` →
+``decode_predictions`` → ``DetectionMetrics`` / ``COCOmAP``), all while
+counting kernel launches, compares the card with the CPU in fp32 for
+serving (float and int8), for one train step and for evaluation, and
 times the kernels, the serving variants, the train step and the eval step
 with CUDA events. Any failed check ends the run with a non-zero exit. The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -41,10 +43,11 @@ from custom_yolo_tpu_torch.eval.decode import decoded_to_lists
 from custom_yolo_tpu_torch.models.detector import (IMAGENET_MEAN,
                                                    IMAGENET_STD,
                                                    create_train_model,
-                                                   decode_raw_predictions)
+                                                   decode_raw_predictions,
+                                                   normalize_uint8)
 from custom_yolo_tpu_torch.models.head import CLS_BIAS
 from custom_yolo_tpu_torch.ops import (attention, head_kernel, nms_kernel,
-                                       sppf_kernel)
+                                       quant, quant_kernel, sppf_kernel)
 from custom_yolo_tpu_torch.ops.anchors import num_anchors
 from custom_yolo_tpu_torch.ops.cuda import build
 from custom_yolo_tpu_torch.ops.nms import MAX_WH, _gather_candidates, \
@@ -61,9 +64,22 @@ NUM_CLASSES = 172
 SERVE_BATCH = 8
 TRAIN_BATCH = 8
 TRAIN_MAX_BOXES = 16
-# the small model of the CPU tests, for the card-against-CPU train step
+# the small model of the CPU tests, for the card-against-CPU train step and
+# int8 forward
 SMALL = dict(width=(3, 8, 16, 32, 64, 256), depth=(2, 1, 1, 1, 2, 1),
              csp=(True, True), num_classes=7, hw=64, batch=2, boxes=4)
+# int8 x model against the bf16 one: Pearson of the box logits (the JAX
+# test's 0.99; 0.9984 measured on an H100). The exact transforms after
+# quantize: within INT8_STEPS int8 steps (of 1/127) of the largest
+# prediction, box-logit Pearson above INT8_OPT_CORR (1.3e-5 of the largest
+# and 0.99916 measured on an H100). int8 card against CPU (small model,
+# fp32): the same step limit and INT8_CPU_CORR (2.5e-11 of the largest,
+# Pearson 1 − 3e-16 on an H100). A flipped int8 step moves a prediction by
+# about one step (1.6 steps measured on the CPU against JAX), hence two.
+INT8_CORR = 0.99
+INT8_STEPS = 2
+INT8_OPT_CORR = 0.995
+INT8_CPU_CORR = 0.9999
 # random weights score ~0.01; a gate this low fills every 1024-candidate
 # pool, so the NMS kernel does its full work
 POOL_CONF = 0.001
@@ -81,7 +97,8 @@ KERNEL_CATEGORIES = (
     ("port kernels", ("psa_attention_fwd", "psa_attention_bwd",
                       "nms_keep_kernel", "nms_mask_kernel",
                       "nms_sweep_kernel", "sppf_pyramid_kernel",
-                      "cls_stage_kernel")),
+                      "cls_stage_kernel", "stochastic_round_kernel")),
+    ("int8 product", ("gemm_s8", "imma", "s8s32", "i8816", "i8i8")),
     ("batch norm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm",
                     "BatchNorm")),
     ("optimizer and EMA", ("multi_tensor", "lerp")),
@@ -104,6 +121,7 @@ COUNTED = {
     "nms_single": nms_kernel.nms_keep_single,
     "sppf": sppf_kernel.sppf_pyramid,
     "cls_tower": head_kernel.cls_tower,
+    "stochastic_round": quant_kernel.stochastic_round,
 }
 
 
@@ -143,11 +161,10 @@ def card_line() -> str:
 
 
 def normalize(images: torch.Tensor) -> torch.Tensor:
-    """uint8 NHWC → the model's normalised fp32 input (preprocess_image's
-    arithmetic)."""
-    mean = torch.from_numpy(IMAGENET_MEAN).to(images.device)
-    std = torch.from_numpy(IMAGENET_STD).to(images.device)
-    return (images.float() / 255.0 - mean) / std
+    """uint8 NHWC → the model's normalised fp32 input, as
+    ``serve(device_preprocess=True)`` computes it."""
+    return normalize_uint8(images, torch.from_numpy(IMAGENET_MEAN).to(
+        images.device), torch.from_numpy(IMAGENET_STD).to(images.device))
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -364,6 +381,19 @@ def scale_cls_logits(head, factor: float) -> None:
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def pearson(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return cosine(a - a.mean(), b - b.mean())
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got − want| in units of want's bf16 spacing."""
+    got, want = got.double(), want.double()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(1e-30))) - 7)
+    return float(((got - want).abs() / spacing).max())
 
 
 def attention_loss64(qkv: torch.Tensor, w_out: torch.Tensor,
@@ -651,8 +681,146 @@ def main() -> None:
                 if name == "twin":
                     tower_err[shape, dtype] = err
 
-    # ------------------------------------------- 5. full-width serving
+    # ------------------------------------------- 4e. K7 against its twin
+    # every ConvBN kernel of the x model (fused fp32, the seed of `det`
+    # below) as quantize() hands it to the kernel: (kh·kw·cin, cout),
+    # divided by the channel's scale and clipped; seed 0, as every leaf of
+    # the main path gets. Bit-exact against the twin, at most one step from
+    # round-to-nearest; a 64-bit seed on the largest leaf; unbiased over 64
+    # seeds there (the JAX test's bound, 0.45 of a step)
     p = PRESETS["x"]
+    xq = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
+                  precision="bfloat16", input_size=(HW, HW), device="cuda")
+    xq.init(SEED)
+    xq.fuse()
+    k7_mismatch = k7_far = 0
+    path_leaves = {}            # the main path's leaves: (operand, K7 result)
+    leaves = [key for key in xq._state if key.endswith(".conv.weight")]
+    for key in leaves:
+        flat, _ = quant.stochastic_operand(xq._state[key])
+        got = quant_kernel.stochastic_round(flat, 0)
+        torch.cuda.synchronize()
+        ref = quant_kernel.stochastic_round_reference(flat, 0)
+        k7_mismatch += int((got != ref).sum())
+        k7_far = max(k7_far, int((got.int() - torch.round(flat).int())
+                                 .abs().max()))
+        if not any(part in quant.DEFAULT_QUANT_SKIP
+                   for part in key.split(".")):
+            path_leaves[key] = (flat, got)
+    check(k7_mismatch == 0, f"K7 differs from its twin in {k7_mismatch} "
+          f"elements over {len(leaves)} leaves")
+    check(k7_far <= 1, f"K7 rounded {k7_far} steps from the nearest")
+    largest = max(leaves, key=lambda key: xq._state[key].numel())
+    flat_l, _ = quant.stochastic_operand(xq._state[largest])
+    seed_hi = 2 ** 40 + 7
+    check(torch.equal(quant_kernel.stochastic_round(flat_l, seed_hi),
+                      quant_kernel.stochastic_round_reference(flat_l,
+                                                              seed_hi)),
+          f"K7 differs from its twin under seed {seed_hi}")
+    mean_q = torch.zeros_like(flat_l, dtype=torch.float64)
+    for seed in range(64):
+        mean_q += quant_kernel.stochastic_round(flat_l, seed).double()
+    k7_bias = mean_q / 64 - flat_l.double()
+    k7_bias_max, k7_bias_mean = (k7_bias.abs().max().item(),
+                                 k7_bias.mean().item())
+    check(k7_bias_max < 0.45, f"K7 over 64 seeds is {k7_bias_max} steps "
+          f"from the value it rounds (limit 0.45)")
+    # round to nearest, the card's quantize_fused_params against the CPU's
+    # on the same fp32 fold: equal int8 weights and scales
+    q_card = quant.quantize_fused_params(xq._state)
+    q_cpu = quant.quantize_fused_params({k: v.cpu()
+                                         for k, v in xq._state.items()})
+    q_differ = [k for k, v in q_cpu.items()
+                if not torch.equal(q_card[k].cpu(), v)]
+    check(not q_differ, f"int8 state: card differs from CPU at {q_differ[:4]}")
+    log(f"phase 4e stochastic round: {len(leaves)} leaves of the x model "
+        f"({sum(xq._state[k].numel() for k in leaves)} weights), kernel "
+        f"equal to its twin bit for bit at seed 0 and at {seed_hi} on "
+        f"{largest} {tuple(flat_l.shape)}; at most {k7_far} step from the "
+        f"nearest; over 64 seeds mean error {k7_bias_mean:.3g}, largest "
+        f"{k7_bias_max:.4f} steps (limit 0.45); round-to-nearest int8 "
+        f"weights and scales of the card equal the CPU's")
+    del xq, mean_q, k7_bias, q_card, q_cpu
+
+    # ------------------------------------------- 4f. int8 contraction
+    # each route at x channel widths and small maps: the int32 accumulators
+    # on the card against the float64 twin on the CPU, bit for bit, and the
+    # whole dynamic int8 conv (quantize, contract, dequantize to bf16)
+    # against the CPU's, within one bf16 step. Depthwise goes through a
+    # float32 conv of the int8 values, checked with TF32 off and on. Then
+    # the shape rules of torch._int_mm on this card, probed
+    int8_routes = {
+        "1x1": ((8, 768, 10, 10), (768, 768, 1, 1), 1, 0, 1),
+        "3x3_s1": ((8, 384, 12, 12), (384, 384, 3, 3), 1, 1, 1),
+        "3x3_s2": ((8, 768, 12, 12), (768, 768, 3, 3), 2, 1, 1),
+        "depthwise_3x3": ((8, 384, 12, 12), (384, 1, 3, 3), 1, 1, 384),
+        "s2d_stem_2x2": ((8, 12, 17, 17), (96, 12, 2, 2), 1, 0, 1),
+        "stem_3x3_s2": ((2, 3, 16, 16), (96, 3, 3, 3), 2, 1, 1),  # K 27
+        "1x1_16_rows": ((1, 768, 4, 4), (768, 768, 1, 1), 1, 0, 1),
+    }
+    int8_steps = {}
+    for name, (xs, ws, stride, pad, groups) in int8_routes.items():
+        x = channels_last(xs, torch.bfloat16, gen, dev)
+        qw, wscale = quant.quantize_kernel_int8(
+            torch.randn(ws, generator=gen) * 0.05)
+        bias = torch.randn(ws[0], generator=gen) * 0.1
+        qx, ascale = quant.quantize_act_int8(x)
+        qx_cpu, ascale_cpu = quant.quantize_act_int8(x.cpu())
+        check(torch.equal(qx.cpu(), qx_cpu)
+              and torch.equal(ascale.cpu(), ascale_cpu),
+              f"int8 activations {name}: card differs from CPU")
+        ref = quant.int8_contract_reference(qx_cpu, qw, stride, pad, groups)
+        for tf32 in ((False, True) if groups > 1 else (False,)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            acc = quant.int8_contract(qx, qw.to(dev), stride, pad, groups)
+            torch.cuda.synchronize()
+            check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), ref),
+                  f"int8 contraction {name} (TF32 {tf32}) differs from "
+                  f"its float64 twin")
+        torch.backends.cudnn.allow_tf32 = False
+        got = quant.int8_conv(x, qw.to(dev), wscale.to(dev), bias.to(dev),
+                              stride, pad, groups, act=False)
+        want = quant.int8_conv(x.cpu(), qw, wscale, bias, stride, pad,
+                               groups, act=False,
+                               contract=quant.int8_contract_reference)
+        int8_steps[name] = bf16_steps(got.cpu(), want)
+        check(got.dtype == torch.bfloat16 and int8_steps[name] <= 1.0,
+              f"int8 conv {name}: {int8_steps[name]} bf16 steps from the "
+              f"CPU's")
+    int_mm_rules = {}
+    for m, k, n in ((16, 32, 32), (17, 32, 32), (17, 12, 32), (17, 32, 12),
+                    (8, 8, 8)):
+        a = torch.randint(-127, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        bt = torch.randint(-127, 128, (n, k), generator=gen,
+                           dtype=torch.int8).to(dev)
+        try:
+            exact = torch.equal(torch._int_mm(a, bt.t()).cpu(),
+                                a.cpu().int() @ bt.cpu().int().t())
+            int_mm_rules[f"{m}x{k}x{n}"] = "exact" if exact else "WRONG"
+        except RuntimeError as err:
+            int_mm_rules[f"{m}x{k}x{n}"] = str(err).splitlines()[0][:80]
+    check("WRONG" not in int_mm_rules.values(),
+          f"torch._int_mm {int_mm_rules}")
+    # the card turns a division by a Python number into a multiplication
+    # by its reciprocal: how often that misses the CPU's quotient over the
+    # 256 uint8 levels, and that device_preprocess's scaling does not
+    levels = torch.arange(256, dtype=torch.uint8)
+    scale_255_differ = int((levels.to(dev).float() / 255.0).cpu().ne(
+        levels.float() / 255.0).sum())
+    pixels = levels.reshape(1, 16, 16, 1).expand(1, 16, 16, 3)
+    check(torch.equal(normalize(pixels.to(dev)).cpu(), normalize(pixels)),
+          "device_preprocess normalises uint8 levels otherwise on the card "
+          "than on the CPU")
+    log(f"phase 4f int8 contraction: activations and scales of the card "
+        f"equal the CPU's; routes {sorted(int8_routes)} equal "
+        f"to the float64 twin in int32 (depthwise with TF32 off and on); "
+        f"int8 conv vs the CPU's in bf16 steps {int8_steps}; torch._int_mm "
+        f"(M x K x N) on this card: {int_mm_rules}; x / 255.0 misses the "
+        f"CPU's quotient at {scale_255_differ} of 256 uint8 levels on the "
+        f"card, normalize_uint8 at none")
+
+    # ------------------------------------------- 5. full-width serving
     det = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
                    precision="bfloat16", input_size=(HW, HW), device="cuda")
     t0 = time.perf_counter()
@@ -769,6 +937,113 @@ def main() -> None:
         f"inference {len(dets_opt[0])}; launches serve "
         f"{opt_serve_launches}, serve + inference {opt_launches}")
 
+    # ------------------------------------------- 5c. int8 serving, full width
+    # the seed of `det`: init → fuse → quantize(stochastic=True, skip="auto")
+    # → calibrate on two seeded uint8 batches → serve and inference, with
+    # the fused cls tower asked for (a quantized head never takes K6)
+    def x_detector():
+        return Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
+                        precision="bfloat16", input_size=(HW, HW),
+                        device="cuda")
+
+    q8 = x_detector()
+    q8.init(SEED)
+    q8.fuse()
+    reset_counts()
+    q8.quantize(stochastic=True)
+    torch.cuda.synchronize()
+    quantize_launches = read_counts()
+    n_leaves = sum(key.endswith(".conv.scale") for key in q8._state)
+    check(quantize_launches == counts(stochastic_round=n_leaves)
+          and n_leaves == len(path_leaves),
+          f"quantize launched {quantize_launches}, want K7 once for each "
+          f"of {n_leaves} int8 leaves ({len(path_leaves)} in phase 4e)")
+    for key, (_, q) in path_leaves.items():
+        o, i, kh, kw = q8._state[key].shape
+        check(torch.equal(q8._state[key], q.view(kh, kw, i, o)
+                          .permute(3, 2, 0, 1)),
+              f"{key}: quantize() holds other int8 weights than K7 gave")
+    dyn_state = dict(q8._state)
+    cal_gen = torch.Generator().manual_seed(SEED + 5)
+    cal_batches = [norm_batch, normalize(torch.randint(
+        0, 256, (SERVE_BATCH, HW, HW, 3), generator=cal_gen,
+        dtype=torch.uint8).to(dev))]
+    reset_counts()
+    q8.calibrate(cal_batches)
+    torch.cuda.synchronize()
+    calibrate_launches = read_counts()
+    check(calibrate_launches == counts(attention=4, sppf=2),
+          f"calibrate launched {calibrate_launches}, want attention 4 and "
+          f"SPPF 2 (two dynamic forwards)")
+    q8.model.head.fused_cls_tower = True
+    reset_counts()
+    result8 = q8.serve(batch, conf_thres=POOL_CONF, device_preprocess=True)
+    torch.cuda.synchronize()
+    dets8 = q8.inference(single, conf_thres=POOL_CONF)
+    torch.cuda.synchronize()
+    serve8_launches = read_counts()
+    check(serve8_launches == counts(attention=4, nms_batched=1,
+                                    nms_single=1, sppf=2),
+          f"int8 serve + inference launched {serve8_launches}, want "
+          f"attention 4, SPPF 2, one batched and one single-image NMS, no "
+          f"cls tower")
+    int8_launches = {k: quantize_launches[k] + calibrate_launches[k]
+                     + serve8_launches[k] for k in COUNTED}
+    for name in result8._fields:
+        value = getattr(result8, name)
+        if value.is_floating_point():
+            check(bool(torch.isfinite(value).all()),
+                  f"int8 serve: non-finite {name}")
+    check(int(result8.num_valid.min()) > 0 and len(dets8) == 1
+          and dets8[0].shape[1] == 6 and len(dets8[0]) > 0,
+          "int8 serve or inference returned no detection")
+    # raw predictions against the bf16 fused `det`: the box logits (the
+    # class logits of random weights are all bias)
+    rm4 = 4 * q8.model.head.reg_max
+    preds8 = q8(norm_batch)[0].float()
+    check(bool(torch.isfinite(preds8).all()), "int8 predictions not finite")
+    int8_corr = pearson(preds8[..., :rm4], preds_plain[..., :rm4])
+    int8_corr_all = pearson(preds8, preds_plain)
+    check(int8_corr > INT8_CORR, f"int8 box logits vs bf16: Pearson "
+          f"{int8_corr} (limit {INT8_CORR})")
+    # static equals dynamic on the batch it was calibrated on
+    q8dyn = x_detector()
+    q8dyn.load_variables(dyn_state)
+    q8one = x_detector()
+    q8one.load_variables(dyn_state)
+    q8one.calibrate(cal_batches[:1])
+    check(torch.equal(q8one(norm_batch)[0], q8dyn(norm_batch)[0]),
+          "static int8 differs from dynamic on its calibration batch")
+    # the exact transforms after quantize: only the float stem's conv sums
+    # in another order, so int8 steps flip downstream
+    q8opt = x_detector()
+    q8opt.load_variables(q8._state)
+    q8opt.optimize_for_serving()
+    check(q8opt.model.net.p1_conv.conv.weight.shape[1:] == (12, 2, 2)
+          and any(".conv12.conv.in_scale" in k for k in q8opt._state),
+          "optimize_for_serving after quantize: no s2d stem or no merged "
+          "static int8 C3K")
+    preds8_opt = q8opt(norm_batch)[0].float()
+    int8_top = preds8.abs().max().item()
+    int8_opt_err = (preds8_opt - preds8).abs().max().item()
+    int8_opt_corr = pearson(preds8_opt[..., :rm4], preds8[..., :rm4])
+    check(int8_opt_err <= INT8_STEPS / 127 * int8_top
+          and int8_opt_corr > INT8_OPT_CORR,
+          f"int8 predictions: optimised vs not {int8_opt_err} (limit "
+          f"{INT8_STEPS}/127 of {int8_top}), box-logit Pearson "
+          f"{int8_opt_corr} (limit {INT8_OPT_CORR})")
+    log(f"phase 5c x preset int8 (stochastic, skip {quant.DEFAULT_QUANT_SKIP}"
+        f", static): {n_leaves} int8 leaves, K7 launched once each at "
+        f"quantize and equal to phase 4e's; calibrate on two batches; "
+        f"detections {result8.num_valid.cpu().tolist()}, inference "
+        f"{len(dets8[0])}; box logits vs bf16 fused Pearson {int8_corr} "
+        f"(limit {INT8_CORR}; all logits {int8_corr_all}); static == "
+        f"dynamic bit for bit on its calibration batch; optimised vs not "
+        f"max abs err {int8_opt_err} of {int8_top}, Pearson {int8_opt_corr}"
+        f"; launches quantize {quantize_launches}, calibrate "
+        f"{calibrate_launches}, serve + inference {serve8_launches}")
+    del q8one, q8opt, dyn_state
+
     # ------------------------------------------- 6. card against CPU
     gpu32 = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
                      precision="float32", input_size=(HW, HW), device="cuda")
@@ -796,8 +1071,15 @@ def main() -> None:
     for name in res_c._fields:
         check(torch.equal(getattr(res_g, name).cpu(), getattr(res_c, name)),
               f"batched_nms {name}: card differs from CPU on equal inputs")
-    # end to end: a gate in a wide gap of the CPU's scores, away from ties
-    best = torch.sort(scores_c.amax(-1)[0], descending=True).values
+    # end to end. The class logits of random weights all sit at the bias
+    # prior, so rounding decides which class wins; the logit weights of
+    # both models are widened by the same power of two (exact to undo) so
+    # that the features decide. Then a gate in a wide gap of the CPU's
+    # scores, away from ties
+    widen_e2e, cls_c = widen_cls_logits(cpu32, norm)
+    scale_cls_logits(gpu32.model.head, widen_e2e)
+    best = torch.sort(torch.sigmoid(cls_c).amax(-1)[0],
+                      descending=True).values
     lo, hi = len(best) // 80, len(best) // 28     # ranks 105..300 at 640²
     gaps = best[lo:hi] - best[lo + 1:hi + 1]
     at = lo + int(gaps.argmax())
@@ -828,7 +1110,8 @@ def main() -> None:
     widen32, cls_o = widen_cls_logits(opt32, norm)
     opt32.model.head.fused_cls_tower = True
     cls_k = opt32(norm)[0][..., 4 * opt32.model.head.reg_max:]
-    scale_cls_logits(opt32.model.head, 1.0 / widen32)
+    # from the K6 check's widening to the end-to-end one
+    scale_cls_logits(opt32.model.head, widen_e2e / widen32)
     k6_32_top = cls_o.abs().max().item()
     k6_32_err = (cls_k - cls_o).abs().max().item()
     check(torch.allclose(cls_k, cls_o, atol=1e-4 * max(k6_32_top, 1.0),
@@ -855,8 +1138,9 @@ def main() -> None:
     log(f"phase 6 fp32 card vs CPU (TF32 off): preds max abs err {pred_err} "
         f"(tolerance {pred_tol}, |preds| max {scale}); NMS on equal inputs "
         f"identical ({int(res_c.num_valid[0])} detections at {POOL_CONF}); "
-        f"end to end at conf {conf:.6f}: {n_g} detections each, classes "
-        f"equal, boxes within {box_err} px; CPU forward {cpu_s:.1f} s")
+        f"end to end (class logit weights x{widen_e2e}) at conf "
+        f"{conf:.6f}: {n_g} detections each, classes equal, boxes within "
+        f"{box_err} px; CPU forward {cpu_s:.1f} s")
     del gpu32, cpu32, opt32
 
     # ------------------------------------------- 6b. full-width training
@@ -1066,6 +1350,42 @@ def main() -> None:
             f"{coco_g['mAP_50']} vs CPU {coco_c['mAP_50']}")
     del small, small_state, small_eval
 
+    # ------------------------------------------- 6f. int8, card vs CPU
+    # the small model, fp32, TF32 off: quantized and calibrated on the CPU,
+    # the same static state served on both devices. The int32 products are
+    # exact on both; the float stages (p1, p2) sum in another order, and an
+    # activation one ulp apart can flip an int8 step downstream
+    small_gen = torch.Generator().manual_seed(SEED + 6)
+    small_in = [normalize(torch.randint(
+        0, 256, (SMALL["batch"], SMALL["hw"], SMALL["hw"], 3),
+        generator=small_gen, dtype=torch.uint8)) for _ in range(2)]
+    small8 = {}
+    for device in ("cpu", "cuda"):
+        small8[device] = Detector(
+            SMALL["width"], SMALL["depth"], SMALL["csp"],
+            SMALL["num_classes"], precision="float32",
+            input_size=(SMALL["hw"], SMALL["hw"]), device=device)
+    small8["cpu"].init(SEED)
+    small8["cpu"].quantize()
+    small8["cpu"].calibrate(small_in[:1])
+    small8["cuda"].load_variables({k: v.to(dev) for k, v
+                                   in small8["cpu"]._state.items()})
+    p8_c = small8["cpu"](small_in[1])[0]
+    p8_g = small8["cuda"](small_in[1].to(dev))[0].cpu()
+    int8_cpu_top = p8_c.abs().max().item()
+    int8_cpu_err = (p8_g - p8_c).abs().max().item()
+    int8_cpu_corr = pearson(p8_g, p8_c)
+    check(int8_cpu_err <= INT8_STEPS / 127 * int8_cpu_top
+          and int8_cpu_corr > INT8_CPU_CORR,
+          f"int8 fp32 predictions: card vs CPU {int8_cpu_err} (limit "
+          f"{INT8_STEPS}/127 of {int8_cpu_top}), Pearson {int8_cpu_corr} "
+          f"(limit {INT8_CPU_CORR})")
+    log(f"phase 6f int8 fp32 card vs CPU (TF32 off, small model, static "
+        f"scales from the CPU): preds max abs err {int8_cpu_err} (limit "
+        f"{INT8_STEPS}/127 of {int8_cpu_top}), Pearson {int8_cpu_corr} "
+        f"(limit {INT8_CPU_CORR}), equal: {torch.equal(p8_g, p8_c)}")
+    del small8
+
     # ------------------------------------------------------ 7. timings
     qkv = qkv_x
     k1_ms = time_ms(lambda: attention.psa_attention(qkv, nh, dk, dh))
@@ -1199,6 +1519,21 @@ def main() -> None:
         (2 * qkv.numel() + do_x.numel() + dv_x.numel()) * 2,
         2 * b * nh * t * t * (3 * dk + 2 * dh), BF16_FLOPS)
 
+    # K7 on the largest leaf of the x model, and over the leaves of one
+    # quantize() of the main path, launched back to back
+    k7_ms = time_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
+    k7_plain = time_ms(lambda: quant_kernel.stochastic_round_reference(
+        flat_l, 0), reps=5, warmup=1)
+    path_flats = [flat for flat, _ in path_leaves.values()]
+    k7_quantize_ms = time_ms(lambda: [quant_kernel.stochastic_round(f, 0)
+                                      for f in path_flats], reps=5)
+    # bytes: 4 read and 1 written per element; fp32 operations: add,
+    # floor, two clamps (Philox's integer work has no peak in the table)
+    k7_bound = roofline(5 * flat_l.numel(), 4 * flat_l.numel(), FP32_FLOPS)
+    path_weights = sum(flat.numel() for flat in path_flats)
+    k7_quantize_bound = roofline(5 * path_weights, 4 * path_weights,
+                                 FP32_FLOPS)
+
     train_ms = time_ms(lambda: tal_step(state, tbatch), reps=5, warmup=1)
 
     def eval_and_decode():
@@ -1218,11 +1553,16 @@ def main() -> None:
         return lambda: detector.serve(images, conf_thres=POOL_CONF,
                                       device_preprocess=True)
 
-    variants = (("fused", det, False), ("fused_optimized", opt, False),
-                ("fused_optimized_cls_tower", opt, True))
-    serve_ms = {name: {key: time_ms(serve_of(detector, tower, images))
-                       for key, images in (("b8", batch), ("b1", one))}
-                for name, detector, tower in variants}
+    inputs = {"b8": batch, "b1": one}
+    both = ("b8", "b1")
+    variants = (("fused", det, False, both),
+                ("fused_optimized", opt, False, both),
+                ("fused_optimized_cls_tower", opt, True, both),
+                ("int8_static", q8, False, both),
+                ("int8_dynamic", q8dyn, False, ("b8",)))
+    serve_ms = {name: {key: time_ms(serve_of(detector, tower, inputs[key]))
+                       for key in keys}
+                for name, detector, tower, keys in variants}
     opt.model.head.fused_cls_tower = False
     serve_b = serve_ms["fused"]["b8"]
     serve_1 = serve_ms["fused"]["b1"]
@@ -1241,6 +1581,16 @@ def main() -> None:
             "dense_pool": {"k3_ms": k3_dense_ms,
                            "batched_kernel_ms": k3_dense_batched_ms,
                            "kept": int(dense_keep.sum())}},
+        "serve_x640_int8_static": {
+            "batch": SERVE_BATCH, "ms": serve_ms["int8_static"]["b8"],
+            "img_per_s": SERVE_BATCH / serve_ms["int8_static"]["b8"] * 1e3,
+            "b1_ms": serve_ms["int8_static"]["b1"],
+            "dynamic_b8_ms": serve_ms["int8_dynamic"]["b8"]},
+        "quantize_x_k7": {"leaves": n_leaves, "weights": path_weights,
+                          "ms": k7_quantize_ms,
+                          "bound_ms": k7_quantize_bound[0],
+                          "largest_leaf": list(flat_l.shape),
+                          "largest_leaf_ms": k7_ms},
         "cls_tower_ms_by_level": k6_levels,
         "cls_tower_fp32": {"ms": k6_fp32_ms, "bound_ms": k6_fp32_bound[0],
                            "bound_by": k6_fp32_bound[1]},
@@ -1253,17 +1603,18 @@ def main() -> None:
     log(json.dumps(timing))
     prof = profile_call(lambda: tal_step(state, tbatch), reps=2)
     log(json.dumps({"card": card, "profile_train_batch": train_n, **prof}))
-    for name, detector, tower in variants:
-        for images in (batch, one):
-            prof = profile_call(serve_of(detector, tower, images))
+    for name, detector, tower, keys in variants:
+        for key in keys:
+            prof = profile_call(serve_of(detector, tower, inputs[key]))
             log(json.dumps({"card": card, "profile_serve": name,
-                            "batch": len(images), **prof}))
+                            "batch": len(inputs[key]), **prof}))
     opt.model.head.fused_cls_tower = False
     prof = profile_call(eval_and_decode, reps=2)
     log(json.dumps({"card": card, "profile_eval_batch": train_n, **prof}))
 
     paths = {"serve": launches, "train": train_launches,
-             "serve_optimized": opt_launches, "eval": eval_launches}
+             "serve_optimized": opt_launches, "eval": eval_launches,
+             "int8": int8_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):
@@ -1301,6 +1652,9 @@ def main() -> None:
                      "pallas/head_kernel.py:52",
                      max(tower_err[s, torch.bfloat16] for s in x_levels),
                      k6_ms, k6_plain, k6_bound, k6_lib),
+        kernel_entry("stochastic_round_int8", "stochastic_round", "quant.cu",
+                     "quant.py:69", float(k7_mismatch), k7_ms, k7_plain,
+                     k7_bound, None),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -5,8 +5,10 @@ anchor-free DFL head, class-aware batched NMS) served, trained and
 evaluated on an NVIDIA Hopper card. Plain tensor work runs through PyTorch;
 the hand-written kernels (PSA attention forward and backward, batched and
 single-image greedy-NMS keep masks, the SPPF pooling pyramid, the fused cls
-tower of the head) are CUDA C++ for ``sm_90a`` under ``ops/cuda/csrc``,
-each with a plain PyTorch twin that tensors on the CPU take. ``train/``
+tower of the head, seeded stochastic rounding to int8) are CUDA C++ for
+``sm_90a`` under ``ops/cuda/csrc``, each with a plain PyTorch twin that
+tensors on the CPU take. ``ops/quant.py`` holds int8 serving (per-channel
+weights, dynamic or calibrated activation scales). ``train/``
 holds the assigners, the detection loss, AdamW with the plateau schedule,
 the train state and the train and eval steps; ``eval/`` the prediction
 decode and the greedy and COCO-protocol metrics.

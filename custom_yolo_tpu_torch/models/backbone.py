@@ -50,35 +50,51 @@ def stem_kernel_to_s2d(kernel: np.ndarray) -> np.ndarray:
     return k2
 
 
+# the stages, by the names that quant_skip takes
+BACKBONE_STAGES = ("p1_conv", "p2_conv", "p2_csp", "p3_conv", "p3_csp",
+                   "p4_conv", "p4_csp", "p5_conv", "p5_csp", "p5_sppf",
+                   "p5_psa")
+
+
 class Backbone(nn.Module):
     """``s2d_stem=True`` replaces the 3×3 stride-2 stem by space-to-depth
     and the equivalent 2×2 stride-1 conv (same output; kernel from
     :func:`stem_kernel_to_s2d`); ``merged=True`` merges the C3K branch
-    convs (``nn.blocks.C3K``)."""
+    convs (``nn.blocks.C3K``); ``quantized=True`` runs every stage int8
+    except those named in ``quant_skip`` (``p1_conv`` … ``p5_psa``), which
+    stay float."""
 
     def __init__(self, width: Sequence[int], depth: Sequence[int],
                  csp: Sequence[bool], fused: bool = False,
-                 s2d_stem: bool = False, merged: bool = False):
+                 s2d_stem: bool = False, merged: bool = False,
+                 quantized: bool = False, quant_skip: Sequence[str] = ()):
         super().__init__()
         w, d, c = width, depth, csp
-        kw = dict(fused=fused, merged=merged)
 
-        def down(c_in, c_out):
-            return ConvBN(c_in, c_out, 3, stride=2, padding=1, fused=fused)
+        def q(name):
+            return dict(fused=fused,
+                        quantized=quantized and name not in quant_skip)
+
+        def down(c_in, c_out, name):
+            return ConvBN(c_in, c_out, 3, stride=2, padding=1, **q(name))
 
         self.s2d_stem = s2d_stem
-        self.p1_conv = (ConvBN(4 * w[0], w[1], 2, fused=fused) if s2d_stem
-                        else down(w[0], w[1]))
-        self.p2_conv = down(w[1], w[2])
-        self.p2_csp = C3K2(w[2], w[3], d[0], c[0], r=4, **kw)
-        self.p3_conv = down(w[3], w[3])
-        self.p3_csp = C3K2(w[3], w[4], d[1], c[0], r=4, **kw)
-        self.p4_conv = down(w[4], w[4])
-        self.p4_csp = C3K2(w[4], w[4], d[2], c[1], r=2, **kw)
-        self.p5_conv = down(w[4], w[5])
-        self.p5_csp = C3K2(w[5], w[5], d[3], c[1], r=2, **kw)
-        self.p5_sppf = SPPF(w[5], w[5], fused=fused)
-        self.p5_psa = PSA(w[5], d[4], fused=fused)
+        self.p1_conv = (ConvBN(4 * w[0], w[1], 2, **q("p1_conv"))
+                        if s2d_stem else down(w[0], w[1], "p1_conv"))
+        self.p2_conv = down(w[1], w[2], "p2_conv")
+        self.p2_csp = C3K2(w[2], w[3], d[0], c[0], r=4, merged=merged,
+                           **q("p2_csp"))
+        self.p3_conv = down(w[3], w[3], "p3_conv")
+        self.p3_csp = C3K2(w[3], w[4], d[1], c[0], r=4, merged=merged,
+                           **q("p3_csp"))
+        self.p4_conv = down(w[4], w[4], "p4_conv")
+        self.p4_csp = C3K2(w[4], w[4], d[2], c[1], r=2, merged=merged,
+                           **q("p4_csp"))
+        self.p5_conv = down(w[4], w[5], "p5_conv")
+        self.p5_csp = C3K2(w[5], w[5], d[3], c[1], r=2, merged=merged,
+                           **q("p5_csp"))
+        self.p5_sppf = SPPF(w[5], w[5], **q("p5_sppf"))
+        self.p5_psa = PSA(w[5], d[4], **q("p5_psa"))
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -7,7 +7,8 @@ holds one model on one device and serves it: ``init`` (seeded weights) or
 variables), ``fuse`` (fold each
 BatchNorm into its conv), ``optimize_for_serving`` (the exact
 output-preserving transforms: space-to-depth stem and merged C3K branch
-convs), ``__call__`` (raw head output), ``serve``
+convs), ``quantize`` and ``calibrate`` (int8 serving, dynamic then
+static), ``__call__`` (raw head output), ``serve``
 (forward + DFL decode + class-aware batched NMS, fixed-shape result) and
 ``inference`` (one image in, ``(n, 6)`` detections out).
 :func:`create_train_model` gives the unfused model in training mode for
@@ -24,14 +25,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from custom_yolo_tpu_torch.core.dtypes import DTypePolicy, resolve_policy
-from custom_yolo_tpu_torch.models.backbone import (Backbone,
+from custom_yolo_tpu_torch.models.backbone import (BACKBONE_STAGES,
+                                                   Backbone,
                                                    stem_kernel_to_s2d)
 from custom_yolo_tpu_torch.models.head import CLS_BIAS, Head
 from custom_yolo_tpu_torch.models.neck import Neck
-from custom_yolo_tpu_torch.nn.blocks import BN_EPS, MERGE_MIN_HALF
+from custom_yolo_tpu_torch.nn.blocks import (BN_EPS, MERGE_MIN_HALF,
+                                             _QuantConv)
 from custom_yolo_tpu_torch.ops.boxes import dist2bbox
 from custom_yolo_tpu_torch.ops.dfl import dfl_decode
 from custom_yolo_tpu_torch.ops.nms import NMSResult, batched_nms, nms_to_lists
+from custom_yolo_tpu_torch.ops.quant import (DEFAULT_QUANT_SKIP,
+                                             bake_static_scales,
+                                             has_static_scales,
+                                             quantize_fused_params)
 from custom_yolo_tpu_torch.utils.weights import from_jax_variables
 
 # ImageNet normalisation (reference src/data/transforms.py:12-13)
@@ -45,19 +52,24 @@ class YoloModel(nn.Module):
     ``merged`` select the exactly equivalent serving forms of the stem and
     of the C3K blocks (``models.backbone``, ``nn.blocks.C3K``); their
     weights come from :func:`convert_stem_variables` and
-    :func:`merge_c3k_params`."""
+    :func:`merge_c3k_params`. ``quantized`` (fused only) makes every ConvBN
+    int8 except the backbone stages in ``quant_skip``; the weights come
+    from :func:`ops.quant.quantize_fused_params` with the same skip."""
 
     def __init__(self, width: Sequence[int], depth: Sequence[int],
                  csp: Sequence[bool], num_classes: int, reg_max: int = 16,
                  policy: DTypePolicy = DTypePolicy(), fused: bool = False,
-                 s2d_stem: bool = False, merged: bool = False):
+                 s2d_stem: bool = False, merged: bool = False,
+                 quantized: bool = False, quant_skip: Sequence[str] = ()):
         super().__init__()
         self.policy = policy
         self.net = Backbone(width, depth, csp, fused=fused,
-                            s2d_stem=s2d_stem, merged=merged)
-        self.fpn = Neck(width, depth, csp, fused=fused, merged=merged)
+                            s2d_stem=s2d_stem, merged=merged,
+                            quantized=quantized, quant_skip=quant_skip)
+        self.fpn = Neck(width, depth, csp, fused=fused, merged=merged,
+                        quantized=quantized)
         self.head = Head(num_classes, (width[3], width[4], width[5]),
-                         reg_max=reg_max, fused=fused)
+                         reg_max=reg_max, fused=fused, quantized=quantized)
 
     def forward(self, x: torch.Tensor):
         x = x.to(self.policy.compute_dtype).permute(0, 3, 1, 2)
@@ -149,11 +161,12 @@ def merge_c3k_params(state: Mapping[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """Fused state dict → that of ``merged=True`` modules: every C3K's
     ``conv1``/``conv2`` (two convs on the same input) become one ``conv12``,
-    kernels and biases concatenated on the output-channel axis (counterpart
-    of the reference's ``merge_c3k_params``). A C3K is told from a C3K2,
-    which also owns ``conv1``/``conv2``, by its ``res0`` child; those with
-    fewer than ``MERGE_MIN_HALF`` channels per branch stay as they are,
-    which is the module's own gate."""
+    kernels, biases and int8 scales concatenated on the output-channel axis
+    and calibrated input scales merged by their maximum (both read the same
+    tensor); the counterpart of the reference's ``merge_c3k_params``. A C3K
+    is told from a C3K2, which also owns ``conv1``/``conv2``, by its
+    ``res0`` child; those with fewer than ``MERGE_MIN_HALF`` channels per
+    branch stay as they are, which is the module's own gate."""
     suffix = ".conv1.conv.weight"
     prefixes = [key[:-len(suffix)] for key, value in state.items()
                 if key.endswith(suffix)
@@ -164,10 +177,14 @@ def merge_c3k_params(state: Mapping[str, torch.Tensor]
         if f"{prefix}.conv1.bn.weight" in state:
             raise ValueError("merge_c3k_params expects a fused state (fuse "
                              "first)")
-        for leaf in ("weight", "bias"):
+        for leaf in ("weight", "bias", "scale", "in_scale"):
+            if f"{prefix}.conv1.conv.{leaf}" not in state:
+                continue
             a = out.pop(f"{prefix}.conv1.conv.{leaf}")
             b = out.pop(f"{prefix}.conv2.conv.{leaf}")
-            out[f"{prefix}.conv12.conv.{leaf}"] = torch.cat([a, b], dim=0)
+            out[f"{prefix}.conv12.conv.{leaf}"] = (
+                torch.maximum(a, b) if leaf == "in_scale"
+                else torch.cat([a, b], dim=0))
     return out
 
 
@@ -231,6 +248,17 @@ def preprocess_image(image, input_size: Tuple[int, int] = (640, 640),
     return arr[None]
 
 
+def normalize_uint8(images: torch.Tensor, mean: torch.Tensor,
+                    std: torch.Tensor) -> torch.Tensor:
+    """Resized uint8 NHWC → the model's normalised fp32 input, the
+    arithmetic of :func:`preprocess_image`: ÷255, minus ``mean``, ÷``std``.
+    255 is a tensor on the images' device: CUDA turns a division by a
+    Python number into a multiplication by its reciprocal, which misses the
+    correctly rounded quotient for about half of the 256 levels."""
+    x = images.float()
+    return (x / x.new_full((), 255.0) - mean) / std
+
+
 def _resize_bilinear(arr: np.ndarray, h: int, w: int) -> np.ndarray:
     """HWC float32 → (h, w, C): half-pixel bilinear with an antialiasing
     triangle filter when shrinking (``jax.image.resize(..., "bilinear")``)."""
@@ -254,6 +282,27 @@ def _has_key(tree: Mapping[str, Any], name: str) -> bool:
     return any(key == name or (isinstance(value, Mapping)
                                and _has_key(value, name))
                for key, value in tree.items())
+
+
+def _int8_paths(tree: Mapping[str, Any], path: str = "") -> list:
+    """Dotted paths of the int8 leaves of a nested variable tree."""
+    out = []
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out += _int8_paths(value, f"{path}{key}.")
+        elif np.asarray(value).dtype == np.int8:
+            out.append(f"{path}{key}")
+    return out
+
+
+def _quant_layout(int8_keys: Sequence[str]) -> Tuple[bool, Tuple[str, ...]]:
+    """(quantized, quant_skip) of a state whose int8 leaves are these: the
+    skipped stages are the backbone's stages that hold none."""
+    if not int8_keys:
+        return False, ()
+    return True, tuple(stage for stage in BACKBONE_STAGES
+                       if not any(k.startswith(f"net.{stage}.")
+                                  for k in int8_keys))
 
 
 class Detector:
@@ -282,17 +331,31 @@ class Detector:
         self._merged = False
         # optimize_for_serving was asked for: fuse() then merges as well
         self._optimized = False
+        self._quantized = False
+        self._quant_skip: Tuple[str, ...] = ()
+        # a fused model's state as folded, fp32 (int8 where quantized)
+        self._state: Optional[Dict[str, torch.Tensor]] = None
 
     def _build(self, fused: bool) -> YoloModel:
         return YoloModel(self.width, self.depth, self.csp, self.num_classes,
                          self.reg_max, self.policy, fused=fused,
-                         s2d_stem=self._s2d_stem, merged=self._merged)
+                         s2d_stem=self._s2d_stem, merged=self._merged,
+                         quantized=self._quantized,
+                         quant_skip=self._quant_skip)
 
     def _install(self, model: YoloModel, fused: bool) -> None:
         model = model.to(self.device, memory_format=torch.channels_last)
+        self._state = None
         if fused:
-            # folded in fp32; cast once so each conv reads the compute dtype
-            model = model.to(self.policy.compute_dtype)
+            # the transforms after fuse() start from the fp32 fold, as the
+            # JAX package keeps its variables in fp32; the model's float
+            # convs are cast once so that each reads the compute dtype, and
+            # the int8 convs keep their fp32 scales and bias
+            self._state = {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}
+            for module in model.modules():
+                if isinstance(module, nn.Conv2d):
+                    module.to(self.policy.compute_dtype)
         if self.model is not None:
             # the opt-in survives fuse() and optimize_for_serving()
             model.head.fused_cls_tower = self.model.head.fused_cls_tower
@@ -305,9 +368,15 @@ class Detector:
         model.load_state_dict(state, strict=True)
         self._install(model, fused)
 
+    def _transform_state(self) -> Dict[str, torch.Tensor]:
+        """The state the transforms start from: the fused model's kept fold
+        or the unfused model's own (fp32) state."""
+        return dict(self._state) if self._fused else self.model.state_dict()
+
     def init(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Seeded random weights (unfused); returns the state dict."""
         self._s2d_stem = self._merged = self._optimized = False
+        self._quantized, self._quant_skip = False, ()
         model = self._build(fused=False)
         init_weights(model, seed)
         self._install(model, fused=False)
@@ -318,12 +387,15 @@ class Detector:
         ``{"params", "batch_stats"}`` (unfused) or ``{"params"}`` (fused);
         or the port's own variables, a flat dict of tensors by state-dict
         key (``TrainState.eval_variables``), which are copied. A tree that
-        already has the space-to-depth stem (a 2×2 stem kernel) and/or
-        merged C3K convs (``conv12``) is taken as it is."""
+        already has the space-to-depth stem (a 2×2 stem kernel), merged C3K
+        convs (``conv12``) and/or int8 leaves, dynamic or calibrated, is
+        taken as it is; the stages left float give ``quant_skip``."""
         if all(isinstance(v, torch.Tensor) for v in variables.values()):
             fused = not any(".bn." in key for key in variables)
             self._s2d_stem = variables[STEM_KEY].shape[-1] == 2
             self._merged = any(".conv12." in key for key in variables)
+            self._quantized, self._quant_skip = _quant_layout(
+                [k for k, v in variables.items() if v.dtype == torch.int8])
             model = self._build(fused)
             state = {**model.state_dict(),
                      **{k: v.detach().clone() for k, v in variables.items()}}
@@ -333,6 +405,8 @@ class Detector:
             stem = params["net"]["p1_conv"]["conv"]["kernel"]
             self._s2d_stem = tuple(stem.shape[:2]) == (2, 2)
             self._merged = _has_key(params, "conv12")
+            self._quantized, self._quant_skip = _quant_layout(
+                _int8_paths(params))
             model = self._build(fused)
             state = from_jax_variables(variables, model)
         self._optimized = self._s2d_stem or self._merged
@@ -359,7 +433,7 @@ class Detector:
         one conv (:func:`merge_c3k_params`). Composes with :meth:`fuse` in
         either order: when this runs first, ``fuse`` merges."""
         assert self.model is not None, "call .init() or load weights"
-        state = self.model.state_dict()
+        state = self._transform_state()
         if not self._s2d_stem:
             state = convert_stem_variables(state)
             self._s2d_stem = True
@@ -368,6 +442,56 @@ class Detector:
             self._merged = True
         self._optimized = True
         self._rebuild(state, self._fused)
+        return self
+
+    def quantize(self, stochastic: bool = False,
+                 skip: Any = "auto") -> "Detector":
+        """Switch to int8 serving: fuse if needed, quantize each ConvBN's
+        fp32 folded kernel per output channel (the head's logit projections
+        stay float), and rebuild with int8 convs. ``stochastic`` rounds with
+        kernel K7 (one launch per int8 leaf, seed 0 for every leaf, as in
+        the JAX package). ``skip``: backbone stages kept float, ``"auto"``
+        for ``ops.quant.DEFAULT_QUANT_SKIP``, ``()`` for none.
+
+        Activations are then quantized per batch (*dynamic*, one absmax
+        pass per conv); :meth:`calibrate` bakes static scales."""
+        assert self.model is not None, "call .init() or load weights"
+        if self._quantized:
+            return self
+        if not self._fused:
+            self.fuse()
+        skip = DEFAULT_QUANT_SKIP if skip == "auto" else tuple(skip)
+        state = quantize_fused_params(self._state, stochastic=stochastic,
+                                      skip=skip)
+        self._quantized, self._quant_skip = True, skip
+        self._rebuild(state, fused=True)
+        return self
+
+    def calibrate(self, batches) -> "Detector":
+        """Static-quantization calibration: run ``batches`` (preprocessed
+        NHWC arrays or tensors) through the dynamic int8 model, record at
+        each int8 conv the largest input scale ×127 it saw, and bake each
+        conv's static ``in_scale`` (``ops.quant.bake_static_scales``). On a
+        calibration batch the static output then equals the dynamic one."""
+        assert self.model is not None, "call .init() or load weights"
+        assert self._quantized, "call .quantize() before .calibrate()"
+        assert not has_static_scales(self._state), "already calibrated"
+        convs = {name: module for name, module in self.model.named_modules()
+                 if isinstance(module, _QuantConv)}
+        for module in convs.values():
+            module.observing, module.observed = True, None
+        n = 0
+        try:
+            for batch in batches:
+                self(batch)
+                n += 1
+        finally:
+            for module in convs.values():
+                module.observing = False
+        assert n, "calibrate() needs at least one batch"
+        stats = {name: module.observed for name, module in convs.items()
+                 if module.observed is not None}
+        self._rebuild(bake_static_scales(self._state, stats), fused=True)
         return self
 
     @torch.inference_mode()
@@ -408,7 +532,7 @@ class Detector:
         assert self.model is not None, "call .init() or load weights"
         images = torch.as_tensor(images).to(self.device)
         if device_preprocess:
-            images = (images.float() / 255.0 - self._mean) / self._std
+            images = normalize_uint8(images, self._mean, self._std)
         preds, anchors, strides = self.model(images)
         boxes, scores = decode_raw_predictions(preds, anchors, strides,
                                                self.reg_max)

@@ -9,7 +9,9 @@ reference's ``pallas_cls_tower`` field) sends the cls tower of a fused
 model in evaluation mode through :func:`ops.head_kernel.cls_tower`, for
 every level whose channel counts the kernel takes. Switching it on packs
 the towers' weights as the kernel reads them, once;
-:meth:`Head.pack_cls_tower` packs them again after a later change."""
+:meth:`Head.pack_cls_tower` packs them again after a later change. A
+quantized head (int8 towers; ``box{i}_out`` and ``cls{i}_out`` stay float)
+never takes the kernel, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -34,12 +36,13 @@ CLS_BIAS = math.log(PRIOR_PROB / (1 - PRIOR_PROB))
 class Head(nn.Module):
     def __init__(self, num_classes: int, filters: Sequence[int],
                  reg_max: int = 16, strides: Sequence[int] = (8, 16, 32),
-                 fused: bool = False):
+                 fused: bool = False, quantized: bool = False):
         super().__init__()
         nc, rm = num_classes, reg_max
         self.num_classes, self.reg_max = nc, rm
         self.strides = tuple(strides)
-        self.fused = fused
+        self.fused, self.quantized = fused, quantized
+        kw = dict(fused=fused, quantized=quantized)
         self.in_chs = tuple(filters)
         # opt-in: callers set ``model.head.fused_cls_tower = True``
         self._fused_cls_tower = False
@@ -49,17 +52,15 @@ class Head(nn.Module):
         self.cls_ch = cls_ch
         for i, in_ch in enumerate(filters):
             layers = {
-                f"box{i}_conv1": ConvBN(in_ch, box_ch, 3, padding=1,
-                                        fused=fused),
-                f"box{i}_conv2": ConvBN(box_ch, box_ch, 3, padding=1,
-                                        fused=fused),
+                f"box{i}_conv1": ConvBN(in_ch, box_ch, 3, padding=1, **kw),
+                f"box{i}_conv2": ConvBN(box_ch, box_ch, 3, padding=1, **kw),
                 f"box{i}_out": nn.Conv2d(box_ch, 4 * rm, 1),
                 f"cls{i}_dw1": ConvBN(in_ch, in_ch, 3, padding=1,
-                                      groups=in_ch, fused=fused),
-                f"cls{i}_pw1": ConvBN(in_ch, cls_ch, fused=fused),
+                                      groups=in_ch, **kw),
+                f"cls{i}_pw1": ConvBN(in_ch, cls_ch, **kw),
                 f"cls{i}_dw2": ConvBN(cls_ch, cls_ch, 3, padding=1,
-                                      groups=cls_ch, fused=fused),
-                f"cls{i}_pw2": ConvBN(cls_ch, cls_ch, fused=fused),
+                                      groups=cls_ch, **kw),
+                f"cls{i}_pw2": ConvBN(cls_ch, cls_ch, **kw),
                 f"cls{i}_out": nn.Conv2d(cls_ch, nc, 1),
             }
             for name, layer in layers.items():
@@ -103,8 +104,10 @@ class Head(nn.Module):
         ``(3, 3, C)``, 1×1 kernels ``(C_in, C_out)`` — from the ``cls{i}_*``
         submodules. Runs when ``fused_cls_tower`` is switched on, which
         ``Detector`` does after it has installed a model; call it again
-        after changing those weights or moving the module."""
-        takes = self.fused and self.cls_ch % CLS_TOWER_MULTIPLE == 0
+        after changing those weights or moving the module. A quantized head
+        packs nothing."""
+        takes = (self.fused and not self.quantized
+                 and self.cls_ch % CLS_TOWER_MULTIPLE == 0)
         for i, in_ch in enumerate(self.in_chs):
             if not (takes and in_ch % CLS_TOWER_MULTIPLE == 0):
                 self._cls_packs[i] = None

@@ -22,17 +22,18 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 class Neck(nn.Module):
     def __init__(self, width: Sequence[int], depth: Sequence[int],
                  csp: Sequence[bool], fused: bool = False,
-                 merged: bool = False):
+                 merged: bool = False, quantized: bool = False):
         super().__init__()
         w, d, c = width, depth, csp
-        kw = dict(fused=fused, merged=merged)
-        self.h1 = C3K2(w[5] + w[4], w[4], d[5], c[0], r=2, **kw)
+        kw = dict(fused=fused, quantized=quantized)
+        ckw = dict(kw, merged=merged)
+        self.h1 = C3K2(w[5] + w[4], w[4], d[5], c[0], r=2, **ckw)
         # the backbone's p3 and p4 both carry w[4] channels
-        self.h2 = C3K2(w[4] + w[4], w[3], d[5], c[0], r=2, **kw)
-        self.h3 = ConvBN(w[3], w[3], 3, stride=2, padding=1, fused=fused)
-        self.h4 = C3K2(w[3] + w[4], w[4], d[5], c[0], r=2, **kw)
-        self.h5 = ConvBN(w[4], w[4], 3, stride=2, padding=1, fused=fused)
-        self.h6 = C3K2(w[4] + w[5], w[5], d[5], c[1], r=2, **kw)
+        self.h2 = C3K2(w[4] + w[4], w[3], d[5], c[0], r=2, **ckw)
+        self.h3 = ConvBN(w[3], w[3], 3, stride=2, padding=1, **kw)
+        self.h4 = C3K2(w[3] + w[4], w[4], d[5], c[0], r=2, **ckw)
+        self.h5 = ConvBN(w[4], w[4], 3, stride=2, padding=1, **kw)
+        self.h6 = C3K2(w[4] + w[5], w[5], d[5], c[1], r=2, **ckw)
 
     def forward(self, feats: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

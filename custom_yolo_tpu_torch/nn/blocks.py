@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from custom_yolo_tpu_torch.ops.attention import psa_attention
+from custom_yolo_tpu_torch.ops.quant import (int8_conv, int8_conv_static,
+                                             quantize_act_int8)
 from custom_yolo_tpu_torch.ops.sppf_kernel import (sppf_pyramid,
                                                    sppf_pyramid_reference)
 
@@ -38,22 +40,76 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                     conv.padding, conv.dilation, conv.groups)
 
 
+class _QuantConv(nn.Module):
+    """int8 conv leaf of the quantized serving path: buffers ``weight``
+    (int8 OIHW), ``scale`` (fp32, per output channel), ``bias`` (fp32) and,
+    once calibrated, ``in_scale`` (fp32 scalar), as written by
+    :func:`ops.quant.quantize_fused_params` and
+    :func:`ops.quant.bake_static_scales`. The parent ConvBN applies the
+    activation.
+
+    The buffers choose the mode, as the JAX tree does: **static** when
+    ``in_scale`` is present, **dynamic** (per-batch absmax) otherwise. A
+    state dict loaded into the module sets it up for whichever it holds.
+    While ``observing`` is on, a dynamic forward records in ``observed``
+    the largest ``ascale·127`` of its inputs (127 for an all-zero input, as
+    in the JAX package), which ``Detector.calibrate`` bakes."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
+                 padding: int, groups: int):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        k = kernel_size
+        self.register_buffer("weight", torch.zeros(
+            c_out, c_in // groups, k, k, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(c_out))
+        self.register_buffer("bias", torch.zeros(c_out))
+        self.register_buffer("in_scale", None)
+        self.observing = False
+        self.observed = None
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        present = f"{prefix}in_scale" in state_dict
+        self.in_scale = torch.ones((), device=self.scale.device) \
+            if present else None
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kw = dict(stride=self.stride, padding=self.padding,
+                  groups=self.groups, act=False)
+        if self.in_scale is not None:
+            return int8_conv_static(x, self.weight, self.scale, self.bias,
+                                    self.in_scale, **kw)
+        if self.observing:
+            absmax = quantize_act_int8(x)[1] * 127.0
+            self.observed = absmax if self.observed is None \
+                else torch.maximum(self.observed, absmax)
+        return int8_conv(x, self.weight, self.scale, self.bias, **kw)
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm + activation; ``fused=True`` holds the
-    folded conv with bias and no BatchNorm."""
+    folded conv with bias and no BatchNorm; ``quantized=True`` (fused only)
+    an int8 :class:`_QuantConv`."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
-                 act: bool = True, fused: bool = False):
+                 act: bool = True, fused: bool = False,
+                 quantized: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, kernel_size, stride, padding,
-                              groups=groups, bias=fused)
+        if quantized and not fused:
+            raise ValueError("a quantized ConvBN must be fused")
+        self.conv = (_QuantConv(c_in, c_out, kernel_size, stride, padding,
+                               groups) if quantized else
+                     nn.Conv2d(c_in, c_out, kernel_size, stride, padding,
+                               groups=groups, bias=fused))
         self.bn = None if fused else nn.BatchNorm2d(
             c_out, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d(x, self.conv)
+        y = (self.conv(x) if isinstance(self.conv, _QuantConv)
+             else conv2d(x, self.conv))
         if self.bn is not None:
             # normalise in fp32 and round once, as flax's BatchNorm does
             bn = self.bn
@@ -80,11 +136,13 @@ class ConvBN(nn.Module):
 class Residual(nn.Module):
     """Two 3×3 ConvBNs with an additive skip."""
 
-    def __init__(self, ch: int, e: float = 0.5, fused: bool = False):
+    def __init__(self, ch: int, e: float = 0.5, fused: bool = False,
+                 quantized: bool = False):
         super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
         mid = int(ch * e)
-        self.conv1 = ConvBN(ch, mid, 3, padding=1, fused=fused)
-        self.conv2 = ConvBN(mid, ch, 3, padding=1, fused=fused)
+        self.conv1 = ConvBN(ch, mid, 3, padding=1, **kw)
+        self.conv2 = ConvBN(mid, ch, 3, padding=1, **kw)
 
     def forward(self, x):
         return x + self.conv2(self.conv1(x))
@@ -101,18 +159,19 @@ class C3K(nn.Module):
     MERGE_MIN_HALF``; weights from ``models.detector.merge_c3k_params``."""
 
     def __init__(self, c_in: int, out_ch: int, fused: bool = False,
-                 merged: bool = False):
+                 merged: bool = False, quantized: bool = False):
         super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
         half = out_ch // 2
         self.merged = merged and half >= MERGE_MIN_HALF
         if self.merged:
-            self.conv12 = ConvBN(c_in, 2 * half, fused=fused)
+            self.conv12 = ConvBN(c_in, 2 * half, **kw)
         else:
-            self.conv1 = ConvBN(c_in, half, fused=fused)
-            self.conv2 = ConvBN(c_in, half, fused=fused)
-        self.res0 = Residual(half, e=1.0, fused=fused)
-        self.res1 = Residual(half, e=1.0, fused=fused)
-        self.conv3 = ConvBN(2 * half, out_ch, fused=fused)
+            self.conv1 = ConvBN(c_in, half, **kw)
+            self.conv2 = ConvBN(c_in, half, **kw)
+        self.res0 = Residual(half, e=1.0, **kw)
+        self.res1 = Residual(half, e=1.0, **kw)
+        self.conv3 = ConvBN(2 * half, out_ch, **kw)
 
     def forward(self, x):
         if self.merged:
@@ -128,16 +187,18 @@ class C3K2(nn.Module):
     Residual), concat of all → conv2."""
 
     def __init__(self, c_in: int, out_ch: int, n: int, csp: bool, r: int,
-                 fused: bool = False, merged: bool = False):
+                 fused: bool = False, merged: bool = False,
+                 quantized: bool = False):
         super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
         hidden = out_ch // r
-        self.conv1 = ConvBN(c_in, 2 * hidden, fused=fused)
+        self.conv1 = ConvBN(c_in, 2 * hidden, **kw)
         for i in range(n):
-            blk = (C3K(hidden, hidden, fused=fused, merged=merged) if csp
-                   else Residual(hidden, e=0.5, fused=fused))
+            blk = (C3K(hidden, hidden, merged=merged, **kw) if csp
+                   else Residual(hidden, e=0.5, **kw))
             self.add_module(f"m{i}", blk)
         self.n = n
-        self.conv2 = ConvBN((2 + n) * hidden, out_ch, fused=fused)
+        self.conv2 = ConvBN((2 + n) * hidden, out_ch, **kw)
 
     def forward(self, x):
         parts: List[torch.Tensor] = list(self.conv1(x).chunk(2, dim=1))
@@ -158,12 +219,13 @@ class SPPF(nn.Module):
     windows only, so no other ``k`` is built."""
 
     def __init__(self, c_in: int, out_ch: int, k: int = 5,
-                 fused: bool = False):
+                 fused: bool = False, quantized: bool = False):
         super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
         if k != 5:
             raise ValueError(f"SPPF pools 5×5 windows only, got k={k}")
-        self.cv1 = ConvBN(c_in, c_in // 2, fused=fused)
-        self.cv2 = ConvBN(4 * (c_in // 2), out_ch, fused=fused)
+        self.cv1 = ConvBN(c_in, c_in // 2, **kw)
+        self.cv2 = ConvBN(4 * (c_in // 2), out_ch, **kw)
         self.k = k
 
     def forward(self, x):
@@ -183,15 +245,17 @@ class Attention(nn.Module):
     ``[q | k | v]``: the CUDA kernel on the card, the plain twin on the
     CPU."""
 
-    def __init__(self, c: int, num_head: int, fused: bool = False):
+    def __init__(self, c: int, num_head: int, fused: bool = False,
+                 quantized: bool = False):
         super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
         self.num_head = num_head
         self.dim_head = c // num_head
         self.dim_key = self.dim_head // 2
         self.qkv = ConvBN(c, c + self.dim_key * num_head * 2, act=False,
-                          fused=fused)
-        self.pe = ConvBN(c, c, 3, padding=1, groups=c, act=False, fused=fused)
-        self.proj = ConvBN(c, c, act=False, fused=fused)
+                          **kw)
+        self.pe = ConvBN(c, c, 3, padding=1, groups=c, act=False, **kw)
+        self.proj = ConvBN(c, c, act=False, **kw)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -206,11 +270,13 @@ class Attention(nn.Module):
 class PSABlock(nn.Module):
     """Attention residual + two-conv MLP residual."""
 
-    def __init__(self, c: int, num_head: int, fused: bool = False):
+    def __init__(self, c: int, num_head: int, fused: bool = False,
+                 quantized: bool = False):
         super().__init__()
-        self.attn = Attention(c, num_head, fused=fused)
-        self.ffn1 = ConvBN(c, 2 * c, fused=fused)
-        self.ffn2 = ConvBN(2 * c, c, act=False, fused=fused)
+        kw = dict(fused=fused, quantized=quantized)
+        self.attn = Attention(c, num_head, **kw)
+        self.ffn1 = ConvBN(c, 2 * c, **kw)
+        self.ffn2 = ConvBN(2 * c, c, act=False, **kw)
 
     def forward(self, x):
         x = x + self.attn(x)
@@ -221,15 +287,17 @@ class PSA(nn.Module):
     """Split-channel CSP wrapper around n PSABlocks; ``max(1, (c//2)//64)``
     heads on the c/2 attended channels."""
 
-    def __init__(self, c: int, n: int, fused: bool = False):
+    def __init__(self, c: int, n: int, fused: bool = False,
+                 quantized: bool = False):
         super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
         half = c // 2
-        self.conv1 = ConvBN(c, 2 * half, fused=fused)
+        self.conv1 = ConvBN(c, 2 * half, **kw)
         num_head = max(1, half // 64)
         for i in range(n):
-            self.add_module(f"m{i}", PSABlock(half, num_head, fused=fused))
+            self.add_module(f"m{i}", PSABlock(half, num_head, **kw))
         self.n = n
-        self.conv2 = ConvBN(2 * half, c, fused=fused)
+        self.conv2 = ConvBN(2 * half, c, **kw)
 
     def forward(self, x):
         a, b = self.conv1(x).chunk(2, dim=1)

@@ -34,6 +34,7 @@ SOURCES = {
     "nms": ("nms.cu", ("-fmad=false",)),
     "sppf": ("sppf.cu", ()),
     "head": ("head.cu", ()),
+    "quant": ("quant.cu", ()),
 }
 
 # dynamic shared memory one block may opt into on Hopper (sm_90)

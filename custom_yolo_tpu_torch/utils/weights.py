@@ -26,14 +26,27 @@ _LEAF = {
 }
 
 
-def _convert(collection: str, path: Tuple[str, ...], value: Any):
-    key = ".".join(path[:-1] + (_LEAF.get((collection, path[-1]),
-                                          path[-1]),))
-    array = np.asarray(value, dtype=np.float32)
-    if collection == "params" and path[-1] == "kernel":
+def _is_quant_leaf(node: Mapping[str, Any]) -> bool:
+    """An int8 conv leaf ``{kernel (int8), scale, bias[, in_scale]}``, told
+    from a BatchNorm's ``{scale, bias}`` by its int8 kernel."""
+    return ("kernel" in node and "scale" in node
+            and np.asarray(node["kernel"]).dtype == np.int8)
+
+
+def _convert(collection: str, path: Tuple[str, ...], value: Any,
+             quant: bool = False):
+    """One leaf → (state-dict key, tensor). Kernels go HWIO → OIHW; an int8
+    conv leaf (``quant``) keeps its int8 kernel and its own leaf names."""
+    leaf = path[-1]
+    name = "weight" if leaf == "kernel" else (
+        leaf if quant else _LEAF.get((collection, leaf), leaf))
+    array = np.asarray(value)
+    if not (quant and leaf == "kernel"):
+        array = array.astype(np.float32)
+    if collection == "params" and leaf == "kernel":
         # HWIO (kh, kw, cin/g, cout) → OIHW (cout, cin/g, kh, kw)
         array = array.transpose(3, 2, 0, 1)
-    return key, torch.tensor(array)
+    return ".".join(path[:-1] + (name,)), torch.tensor(array)
 
 
 def _flatten(collection: str, tree: Mapping[str, Any]
@@ -42,11 +55,13 @@ def _flatten(collection: str, tree: Mapping[str, Any]
     state: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], path: Tuple[str, ...]) -> None:
+        quant = collection == "params" and _is_quant_leaf(node)
         for name, value in node.items():
             if isinstance(value, Mapping):
                 walk(value, path + (name,))
             else:
-                key, tensor = _convert(collection, path + (name,), value)
+                key, tensor = _convert(collection, path + (name,), value,
+                                       quant)
                 state[key] = tensor
 
     walk(tree, ())
@@ -56,8 +71,9 @@ def _flatten(collection: str, tree: Mapping[str, Any]
 def from_jax_variables(tree: Mapping[str, Any],
                        model: nn.Module) -> Dict[str, torch.Tensor]:
     """A JAX variable tree as nested dicts of numpy arrays —
-    ``{"params", "batch_stats"}`` unfused or ``{"params"}`` fused — → the
-    state dict of ``model`` (which ``load_state_dict(strict=True)``
+    ``{"params", "batch_stats"}`` unfused or ``{"params"}`` fused, int8
+    conv leaves of a quantized tree included — → the state dict of
+    ``model`` (which ``load_state_dict(strict=True)``
     accepts). Raises ``ValueError`` on a missing, extra or mis-shaped
     entry."""
     state: Dict[str, torch.Tensor] = {}
@@ -70,8 +86,11 @@ def from_jax_variables(tree: Mapping[str, Any],
     for key, value in expected.items():
         if key.endswith(".num_batches_tracked"):
             state[key] = torch.zeros_like(value)
+    # a calibrated int8 conv's input scale, which the module takes on load
+    in_scales = {k for k in state if k.endswith(".conv.in_scale")
+                 and f"{k[:-len('in_scale')]}scale" in expected}
     missing = sorted(set(expected) - set(state))
-    extra = sorted(set(state) - set(expected))
+    extra = sorted(set(state) - set(expected) - in_scales)
     mismatched = [f"{k}: {tuple(state[k].shape)} vs {tuple(expected[k].shape)}"
                   for k in sorted(set(state) & set(expected))
                   if state[k].shape != expected[k].shape]

@@ -287,7 +287,7 @@ def test_build_names_libraries_by_source_hash():
         src, flags = build.SOURCES[name]
         assert (build.CSRC / src).exists()
     assert set(build.SOURCES) == {"attention", "attention_bwd", "nms", "sppf",
-                                  "head"}
+                                  "head", "quant"}
     assert "-fmad=false" in build.SOURCES["nms"][1]
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     ignored = (REPO / ".gitignore").read_text()
@@ -316,7 +316,9 @@ def test_port_imports_no_jax_or_reference_package():
             "custom_yolo_tpu_torch/eval/metrics.py",
             "custom_yolo_tpu_torch/eval/coco_map.py",
             "custom_yolo_tpu_torch/ops/sppf_kernel.py",
-            "custom_yolo_tpu_torch/ops/head_kernel.py"} <= names
+            "custom_yolo_tpu_torch/ops/head_kernel.py",
+            "custom_yolo_tpu_torch/ops/quant.py",
+            "custom_yolo_tpu_torch/ops/quant_kernel.py"} <= names
 
 
 def test_port_detector_runs_without_jax_loaded():
