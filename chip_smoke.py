@@ -16,7 +16,8 @@ warm-up on), evaluates the trained state (``make_eval_step`` →
 counting kernel launches, compares the card with the CPU in fp32 for
 serving (float and int8), for one train step and for evaluation, and
 times the kernels, the serving variants, the train step and the eval step
-with CUDA events. Any failed check ends the run with a non-zero exit. The
+with CUDA events (K1 and K4, whose calls take microseconds, and their
+library yardsticks by their device time in a profiler trace). Any failed check ends the run with a non-zero exit. The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
 """
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -80,6 +82,17 @@ INT8_CORR = 0.99
 INT8_STEPS = 2
 INT8_OPT_CORR = 0.995
 INT8_CPU_CORR = 0.9999
+# attention shapes (B, T, nh, dk, dh) of phases 3 and 4b and their dtypes:
+# the x preset's and a small ragged one in both; in bf16 also T=1024 (a
+# 1024² input), one token past a 64-row tile and another dk/dh; and rows
+# whose stride (c_qkv = 132) is not a multiple of 8, in both
+BOTH = (torch.bfloat16, torch.float32)
+ATTN_CASES = (((SERVE_BATCH, 400, 6, 32, 64), BOTH), ((3, 37, 2, 8, 16), BOTH),
+              ((2, 1024, 6, 32, 64), (torch.bfloat16,)),
+              ((2, 65, 6, 32, 64), (torch.bfloat16,)),
+              ((1, 400, 2, 16, 32), (torch.bfloat16,)),
+              ((2, 70, 3, 12, 20), BOTH))
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # random weights score ~0.01; a gate this low fills every 1024-candidate
 # pool, so the NMS kernel does its full work
 POOL_CONF = 0.001
@@ -230,6 +243,30 @@ def profile_call(fn, reps: int = 5) -> dict:
             "by_category_ms_launches": by_category,
             "top": [[name[:80], ms / reps, count // reps]
                     for name, (ms, count) in top]}
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the busy time of ``reps`` calls
+    back to back in a profiler trace, over ``reps``. Unlike one call's CUDA
+    events it leaves out the host's launch path, which at a few
+    microseconds of kernel is most of an event time."""
+    return profile_call(fn, reps)["device_busy_ms"] / reps
+
+
+def attention_bounds(b: int, t: int, nh: int, dk: int, dh: int,
+                     dtype) -> tuple:
+    """(forward, backward) least times of PSA attention: each input read
+    once, each output written once; operations of the products (forward:
+    q·kᵀ and p·v; backward: q·kᵀ, do·vᵀ, pᵀ·do, ds·k, dsᵀ·q) at the dtype's
+    peak (bf16 tensor cores, fp32 CUDA cores)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    qkv_bytes = b * t * nh * (2 * dk + dh) * size
+    out_bytes = b * t * nh * dh * size
+    return (roofline(qkv_bytes + 2 * out_bytes,
+                     2 * b * nh * t * t * (dk + dh), peak),
+            roofline(2 * qkv_bytes + 2 * out_bytes,
+                     2 * b * nh * t * t * (3 * dk + 2 * dh), peak))
 
 
 # ------------------------------------------------------------ NMS inputs
@@ -471,20 +508,31 @@ def main() -> None:
     log(f"phase 2 build: {sorted(build.SOURCES)} in {build_s:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
+    # the bf16 attention kernels run on the tensor cores: HMMA in the SASS
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        for name in ("attention", "attention_bwd"):
+            sass = subprocess.run([cuobjdump, "-sass",
+                                   str(build.library_path(name))],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            check("HMMA" in sass, f"{name}: no HMMA instruction in the SASS")
+            log(f"  {name}: {sass.count('HMMA')} HMMA instructions in the "
+                f"SASS")
 
     # ------------------------------------------- 3. K1 against its twin
-    # the x preset's shape (B=8, T=400, nh=6, dk=32, dh=64), then a small
-    # one with a ragged last row tile
     gen = torch.Generator().manual_seed(SEED)
     b, t, nh, dk, dh = SERVE_BATCH, 400, 6, 32, 64
     attn_err = {}
-    for shape in ((b, t, nh, dk, dh), (3, 37, 2, 8, 16)):
+    for shape, dtypes in ATTN_CASES:
         sb, st, snh, sdk, sdh = shape
         qkv32 = torch.randn(sb, st, snh * (2 * sdk + sdh),
                             generator=gen).to(dev)
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        for dtype in dtypes:
+            tol = ATTN_TOL[dtype]
             qkv = qkv32.to(dtype)
             out, v = attention.psa_attention(qkv, snh, sdk, sdh)
             torch.cuda.synchronize()
@@ -548,15 +596,15 @@ def main() -> None:
           "nms_keep did not send one image to the single-image kernels")
 
     # ------------------------------------------- 4b. K4 against its twin
-    # the same two shapes, with random cotangents for out and v
+    # the same cases, with random cotangents for out and v
     bwd_err = {}
-    for shape in ((b, t, nh, dk, dh), (3, 37, 2, 8, 16)):
+    for shape, dtypes in ATTN_CASES:
         sb, st, snh, sdk, sdh = shape
         qkv32 = torch.randn(sb, st, snh * (2 * sdk + sdh),
                             generator=gen).to(dev)
         do32 = torch.randn(sb, st, snh * sdh, generator=gen).to(dev)
         dv32 = torch.randn(sb, st, snh * sdh, generator=gen).to(dev)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             args = (qkv32.to(dtype), do32.to(dtype), dv32.to(dtype),
                     snh, sdk, sdh)
             got = attention.psa_attention_bwd(*args)
@@ -1387,15 +1435,43 @@ def main() -> None:
     del small8
 
     # ------------------------------------------------------ 7. timings
+    # K1 at the x shape: device time (profiler) and one call's events, the
+    # library's attention the same two ways; then the fp32 route at the
+    # same shape, B=1 beside the library, and T=1024
     qkv = qkv_x
-    k1_ms = time_ms(lambda: attention.psa_attention(qkv, nh, dk, dh))
+
+    def k1_of(x):
+        return lambda: attention.psa_attention(x, nh, dk, dh)
+
+    def sdpa_of(x):
+        x4 = x.view(x.shape[0], x.shape[1], nh, 2 * dk + dh).transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            x4[..., :dk], x4[..., dk:2 * dk], x4[..., 2 * dk:])
+
+    k1_ms = device_ms(k1_of(qkv))
+    k1_call_ms = time_ms(k1_of(qkv))
     k1_plain = time_ms(lambda: attention.psa_attention_reference(
         qkv, nh, dk, dh))
     q4 = qkv.view(b, t, nh, 2 * dk + dh).transpose(1, 2)
     q, kk, vv = q4[..., :dk], q4[..., dk:2 * dk], q4[..., 2 * dk:]
-    k1_lib = time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv))
-    k1_bound = roofline(qkv.numel() * 2 + 2 * b * t * nh * dh * 2,
-                        2 * b * nh * t * t * (dk + dh), BF16_FLOPS)
+    k1_lib = device_ms(sdpa_of(qkv))
+    k1_lib_call = time_ms(sdpa_of(qkv))
+    k1_bound, k4_bound = attention_bounds(b, t, nh, dk, dh, torch.bfloat16)
+    qkv_fp32 = qkv.float()
+    k1_fp32_ms = device_ms(k1_of(qkv_fp32))
+    k1_fp32_bound, k4_fp32_bound = attention_bounds(b, t, nh, dk, dh,
+                                                    torch.float32)
+    qkv_b1 = qkv[:1].contiguous()
+    k1_b1_ms = device_ms(k1_of(qkv_b1))
+    k1_b1_lib = device_ms(sdpa_of(qkv_b1))
+    k1_b1_bound = attention_bounds(1, t, nh, dk, dh, torch.bfloat16)[0]
+    qkv_long = torch.randn(2, 1024, nh * (2 * dk + dh), generator=gen).to(
+        dev, torch.bfloat16)
+    k1_long_ms = device_ms(k1_of(qkv_long))
+    k1_long_lib = device_ms(sdpa_of(qkv_long))
+    k1_long_bound = attention_bounds(2, 1024, nh, dk, dh,
+                                     torch.bfloat16)[0]
+    del qkv_long
 
     # K2 on the pool the main path hands it: the serve batch's candidates
     boxes_s, scores_s = decode_raw_predictions(
@@ -1505,19 +1581,27 @@ def main() -> None:
     k6_fp32_bound = roofline(2 * k6_bytes, k6_mm_ops + k6_dw_ops, FP32_FLOPS)
     del feats32, packs32
 
-    # K4 at the x shape, its twin, and the library's attention backward
-    k4_ms = time_ms(lambda: attention.psa_attention_bwd(
-        qkv, do_x, dv_x, nh, dk, dh))
+    # K4 at the x shape (device time and events), its twin, the library's
+    # attention backward, and the fp32 route at the same shape
+    def k4_of(x, g, gv):
+        return lambda: attention.psa_attention_bwd(x, g, gv, nh, dk, dh)
+
+    k4_ms = device_ms(k4_of(qkv, do_x, dv_x))
+    k4_call_ms = time_ms(k4_of(qkv, do_x, dv_x))
     k4_plain = time_ms(lambda: attention.psa_attention_bwd_reference(
         qkv, do_x, dv_x, nh, dk, dh))
     lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, kk, vv))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv)
     lib_do = do_x.view(b, t, nh, dh).transpose(1, 2)
-    k4_lib = time_ms(lambda: torch.autograd.grad(
-        lib_out, (lq, lk, lv), lib_do, retain_graph=True))
-    k4_bound = roofline(
-        (2 * qkv.numel() + do_x.numel() + dv_x.numel()) * 2,
-        2 * b * nh * t * t * (3 * dk + 2 * dh), BF16_FLOPS)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(lib_out, (lq, lk, lv), lib_do,
+                                   retain_graph=True)
+
+    k4_lib = device_ms(sdpa_bwd)
+    k4_lib_call = time_ms(sdpa_bwd)
+    k4_fp32_ms = device_ms(k4_of(qkv_fp32, do_x.float(), dv_x.float()))
+    del qkv_fp32
 
     # K7 on the largest leaf of the x model, and over the leaves of one
     # quantize() of the main path, launched back to back
@@ -1591,6 +1675,23 @@ def main() -> None:
                           "bound_ms": k7_quantize_bound[0],
                           "largest_leaf": list(flat_l.shape),
                           "largest_leaf_ms": k7_ms},
+        "attention_x640": {
+            "shape": [b, t, nh, dk, dh],
+            "k1_bf16": {"ms": k1_ms, "call_ms": k1_call_ms,
+                        "bound_ms": k1_bound[0], "sdpa_ms": k1_lib,
+                        "sdpa_call_ms": k1_lib_call},
+            "k1_fp32": {"ms": k1_fp32_ms, "bound_ms": k1_fp32_bound[0],
+                        "bound_by": k1_fp32_bound[1]},
+            "k1_bf16_b1": {"ms": k1_b1_ms, "bound_ms": k1_b1_bound[0],
+                           "sdpa_ms": k1_b1_lib},
+            "k1_bf16_b2_t1024": {"ms": k1_long_ms,
+                                 "bound_ms": k1_long_bound[0],
+                                 "sdpa_ms": k1_long_lib},
+            "k4_bf16": {"ms": k4_ms, "call_ms": k4_call_ms,
+                        "bound_ms": k4_bound[0], "sdpa_bwd_ms": k4_lib,
+                        "sdpa_bwd_call_ms": k4_lib_call},
+            "k4_fp32": {"ms": k4_fp32_ms, "bound_ms": k4_fp32_bound[0],
+                        "bound_by": k4_fp32_bound[1]}},
         "cls_tower_ms_by_level": k6_levels,
         "cls_tower_fp32": {"ms": k6_fp32_ms, "bound_ms": k6_fp32_bound[0],
                            "bound_by": k6_fp32_bound[1]},

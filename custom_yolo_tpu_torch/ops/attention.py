@@ -7,12 +7,14 @@ Counterpart of ``custom_yolo_tpu/ops/pallas/attention_kernel.py``
 qkv ``(B, T, nh·(2dk+dh))`` with per-head channels ``[q | k | v]`` →
 ``(out, v)``, each ``(B, T, nh·dh)``.
 
-There is one route per device: a CUDA tensor goes through the hand-written
-kernels (``ops/cuda/csrc/attention.cu`` forward, ``attention_bwd.cu``
-backward), a CPU tensor through the plain twins, in serving and in
-training alike. The JAX package trains through its einsum path unless
-``pallas_attention=True`` selects the kernel pair; the port corresponds to
-``pallas_attention=True`` and has no flag for it. As there, only ``qkv``
+There is one route per device and dtype: a CUDA tensor goes through the
+hand-written kernels (``ops/cuda/csrc/attention.cu`` forward,
+``attention_bwd.cu`` backward; bfloat16 on the tensor cores at any T,
+float32 on the CUDA cores with T bounded by shared memory), a CPU tensor
+through the plain twins, in serving and in training alike. The JAX package
+trains through its einsum path unless ``pallas_attention=True`` selects the
+kernel pair; the port corresponds to ``pallas_attention=True`` and has no
+flag for it. As there, only ``qkv``
 is kept between forward and backward, and the softmax is recomputed.
 """
 
@@ -101,20 +103,28 @@ def psa_attention_fwd(qkv: torch.Tensor, num_heads: int, dim_key: int,
     _check_cuda_qkv("psa_attention", qkv, num_heads, dim_key, dim_head)
     b, t, _ = qkv.shape
     lib = build.load("attention")
-    smem_bytes = lib.psa_attention_smem_bytes
-    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem_bytes.restype = ctypes.c_longlong
-    need = smem_bytes(t, dim_key)
-    if need > build.SMEM_LIMIT:
-        t_max = (build.SMEM_LIMIT // 4 - 33 * dim_key) // (dim_key + 32)
-        raise ValueError(
-            f"psa_attention: T={t} tokens at dk={dim_key} needs {need} bytes "
-            f"of shared memory for a 32-row score tile plus kᵀ; the limit is "
-            f"{build.SMEM_LIMIT} (T ≤ {t_max})")
-    max_dh = lib.psa_attention_max_dh()
-    if dim_head > max_dh or dim_key * (t + 1) < dim_head:
-        raise ValueError(f"psa_attention: dh={dim_head} must be ≤ {max_dh} "
-                         f"and ≤ dk·(T+1) = {dim_key * (t + 1)}")
+    if qkv.dtype == torch.bfloat16:
+        max_dk, max_dh = lib.psa_attention_max_dk(), lib.psa_attention_max_dh()
+        if dim_key > max_dk or dim_head > max_dh:
+            raise ValueError(f"psa_attention: dk={dim_key} must be ≤ {max_dk} "
+                             f"and dh={dim_head} ≤ {max_dh}")
+    else:
+        smem_bytes = lib.psa_attention_smem_bytes
+        smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem_bytes.restype = ctypes.c_longlong
+        need = smem_bytes(t, dim_key)
+        if need > build.SMEM_LIMIT:
+            t_max = (build.SMEM_LIMIT // 4 - 33 * dim_key) // (dim_key + 32)
+            raise ValueError(
+                f"psa_attention: float32 T={t} tokens at dk={dim_key} needs "
+                f"{need} bytes of shared memory for a 32-row score tile plus "
+                f"kᵀ; the limit is {build.SMEM_LIMIT} (T ≤ {t_max} for "
+                f"float32 only; bfloat16 takes any T)")
+        max_dh = lib.psa_attention_max_dh()
+        if dim_head > max_dh or dim_key * (t + 1) < dim_head:
+            raise ValueError(f"psa_attention: float32 dh={dim_head} must be "
+                             f"≤ {max_dh} and ≤ dk·(T+1) = "
+                             f"{dim_key * (t + 1)}")
     out = torch.empty(b, t, num_heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
     v = torch.empty_like(out)
@@ -157,22 +167,26 @@ def psa_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, dv: torch.Tensor,
     lib = build.load("attention_bwd")
     max_dk, max_dh = (lib.psa_attention_bwd_max_dk(),
                       lib.psa_attention_bwd_max_dh())
-    if dim_key > max_dk or dim_head > max_dh \
-            or dim_key * (t + 1) < dim_head + 1:
-        raise ValueError(f"{name}: dk={dim_key} must be ≤ {max_dk}, "
-                         f"dh={dim_head} ≤ {max_dh} and < dk·(T+1) = "
-                         f"{dim_key * (t + 1)}")
-    smem_bytes = lib.psa_attention_bwd_smem_bytes
-    smem_bytes.argtypes = [ctypes.c_int] * 3
-    smem_bytes.restype = ctypes.c_longlong
-    need = smem_bytes(t, dim_key, dim_head)
-    if need > build.SMEM_LIMIT:
-        t_max = (build.SMEM_LIMIT // 4 - 33 * dim_key - 32 * dim_head) \
-            // (dim_key + 64)
-        raise ValueError(
-            f"{name}: T={t} tokens at dk={dim_key}, dh={dim_head} needs "
-            f"{need} bytes of shared memory for a 32-row tile of scores and "
-            f"of dp plus kᵀ; the limit is {build.SMEM_LIMIT} (T ≤ {t_max})")
+    if dim_key > max_dk or dim_head > max_dh:
+        raise ValueError(f"{name}: dk={dim_key} must be ≤ {max_dk} and "
+                         f"dh={dim_head} ≤ {max_dh}")
+    if qkv.dtype == torch.float32:
+        if dim_key * (t + 1) < dim_head + 1:
+            raise ValueError(f"{name}: float32 dh={dim_head} must be < "
+                             f"dk·(T+1) = {dim_key * (t + 1)}")
+        smem_bytes = lib.psa_attention_bwd_smem_bytes
+        smem_bytes.argtypes = [ctypes.c_int] * 3
+        smem_bytes.restype = ctypes.c_longlong
+        need = smem_bytes(t, dim_key, dim_head)
+        if need > build.SMEM_LIMIT:
+            t_max = (build.SMEM_LIMIT // 4 - 33 * dim_key
+                     - 32 * dim_head) // (dim_key + 64)
+            raise ValueError(
+                f"{name}: float32 T={t} tokens at dk={dim_key}, "
+                f"dh={dim_head} needs {need} bytes of shared memory for a "
+                f"32-row tile of scores and of dp plus kᵀ; the limit is "
+                f"{build.SMEM_LIMIT} (T ≤ {t_max} for float32 only; "
+                f"bfloat16 takes any T)")
     dqkv = torch.empty_like(qkv)
     # per (b, head, query row): softmax row maximum, row sum, delta
     stats = torch.empty(b, num_heads, t, 3, dtype=torch.float32,

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its
 own by ``nvcc`` for ``sm_90a`` into a shared library that ``ctypes`` loads.
 Libraries go to ``_build/`` beside this file (git-ignored), named by a hash
-of the source and the flags, so an edited source is rebuilt at its next
-use and an unchanged one is reused. :func:`build` starts one ``nvcc`` per
-missing library, all at once, and waits for every one of them.
+of the source, the headers under ``csrc/`` (``*.cuh``, hashed into every
+library) and the flags, so an edited source or header is rebuilt at its
+next use and an unchanged one is reused. :func:`build` starts one ``nvcc``
+per missing library, all at once, and waits for every one of them.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def _flags(name: str):
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / SOURCES[name][0]).read_bytes()
+    source = (CSRC / SOURCES[name][0]).read_bytes() + b"".join(
+        header.read_bytes() for header in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
         source + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"

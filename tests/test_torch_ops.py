@@ -6,6 +6,7 @@ their plain twins, and the JAX side runs its Pallas kernels in interpret
 mode or its XLA reference.
 """
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -40,6 +41,10 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("shape,dtype,atol", [
     ((2, 16, 2, 8, 16), "float32", 1e-5),
     ((2, 400, 6, 32, 64), "bfloat16", 2e-2),   # the x preset at 640²
+    # T=1024 (a 1024² input) and one token past a 64-row tile: the T the
+    # bf16 kernel takes since its key tiles stream through shared memory
+    ((1, 1024, 2, 32, 64), "bfloat16", 2e-2),
+    ((2, 65, 2, 32, 64), "bfloat16", 2e-2),
 ])
 def test_attention_twin_matches_jax_kernel(shape, dtype, atol):
     b, t, nh, dk, dh = shape
@@ -292,6 +297,22 @@ def test_build_names_libraries_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
     ignored = (REPO / ".gitignore").read_text()
     assert "custom_yolo_tpu_torch/ops/cuda/_build/" in ignored
+
+
+def test_library_hash_covers_shared_header(tmp_path, monkeypatch):
+    """Both attention sources include attention_tiles.cuh; an edit to the
+    header renames (so rebuilds) every library."""
+    for src in ("attention.cu", "attention_bwd.cu"):
+        text = (build.CSRC / src).read_text()
+        assert '#include "attention_tiles.cuh"' in text
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    header = csrc / "attention_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(before[name] != after[name] for name in build.SOURCES)
 
 
 # --------------------------------------------------------------- imports

@@ -90,6 +90,8 @@ def _attention_inputs(shape, seed):
     # inputs lets two fp32 sums taken in another order round one bf16 step
     # apart
     ((1, 400, 6, 32, 64), "bfloat16", 2e-2),
+    # one token past a 64-row tile of the bf16 kernels
+    ((1, 65, 2, 32, 64), "bfloat16", 2e-2),
 ])
 def test_attention_bwd_twin_matches_pallas_kernel(shape, dtype, tol):
     _, _, nh, dk, dh = shape
