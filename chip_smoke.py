@@ -16,8 +16,10 @@ warm-up on), evaluates the trained state (``make_eval_step`` →
 counting kernel launches, compares the card with the CPU in fp32 for
 serving (float and int8), for one train step and for evaluation, and
 times the kernels, the serving variants, the train step and the eval step
-with CUDA events (K1 and K4, whose calls take microseconds, and their
-library yardsticks by their device time in a profiler trace). Any failed check ends the run with a non-zero exit. The
+with CUDA events (K1, K4 and K6 and their library yardsticks also by their
+device time in a profiler trace; K6 and the head's cuDNN chain level by
+level). With a second card it also runs K1, K5 and K6 on ``cuda:1`` while
+``cuda:0`` is current. Any failed check ends the run with a non-zero exit. The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
 """
@@ -83,12 +85,15 @@ INT8_STEPS = 2
 INT8_OPT_CORR = 0.995
 INT8_CPU_CORR = 0.9999
 # attention shapes (B, T, nh, dk, dh) of phases 3 and 4b and their dtypes:
-# the x preset's and a small ragged one in both; in bf16 also T=1024 (a
-# 1024² input), one token past a 64-row tile and another dk/dh; and rows
-# whose stride (c_qkv = 132) is not a multiple of 8, in both
+# the x preset's and a small ragged one in both; T=1024 (a 1024² input)
+# and T=1600 (1280²) in both, beyond the T the fp32 kernels took before
+# they streamed their keys; in bf16 also one token past a 64-row tile and
+# another dk/dh; and rows whose stride (c_qkv = 132) is not a multiple of
+# 8, in both
 BOTH = (torch.bfloat16, torch.float32)
 ATTN_CASES = (((SERVE_BATCH, 400, 6, 32, 64), BOTH), ((3, 37, 2, 8, 16), BOTH),
-              ((2, 1024, 6, 32, 64), (torch.bfloat16,)),
+              ((2, 1024, 6, 32, 64), BOTH),
+              ((1, 1600, 6, 32, 64), BOTH),
               ((2, 65, 6, 32, 64), (torch.bfloat16,)),
               ((1, 400, 2, 16, 32), (torch.bfloat16,)),
               ((2, 70, 3, 12, 20), BOTH))
@@ -483,6 +488,50 @@ def train_engine(width, depth, csp, num_classes, precision, device, seed,
     return model, optimizer, state, step
 
 
+def device_guard(gen: torch.Generator) -> None:
+    """Phase 4g: K1, K5 and K6 on ``cuda:1`` while ``cuda:0`` is current.
+    Every launch goes through ``build.launch``, which makes the tensors'
+    device current for it (and for its ``cudaFuncSetAttribute``); each
+    result is held to its twin on ``cuda:1``. On one card it says that
+    this is unverified there."""
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1)
+        torch.cuda.set_device(0)
+        qkv1 = torch.randn(2, 400, 6 * 128, generator=gen).to(
+            other, torch.bfloat16)
+        out1, v1 = attention.psa_attention(qkv1, 6, 32, 64)
+        ref_out1, ref_v1 = attention.psa_attention_reference(qkv1, 6, 32, 64)
+        check(torch.equal(v1, ref_v1) and torch.allclose(
+            out1.float(), ref_out1.float(), atol=2e-2, rtol=2e-2),
+              "attention on cuda:1 differs from its twin")
+        p5_1 = channels_last((2, 384, 20, 20), torch.bfloat16, gen, other)
+        check(torch.equal(sppf_kernel.sppf_pyramid(p5_1),
+                          sppf_kernel.sppf_pyramid_reference(p5_1)),
+              "SPPF on cuda:1 differs from its twin")
+        # K6 first on cuda:0, then on cuda:1: its shared-memory attribute
+        # is set once per device, so the second device must get its own
+        x1 = channels_last((2, 384, 20, 20), torch.bfloat16, gen, other)
+        params1 = tower_params(384, 384, NUM_CLASSES, torch.bfloat16, gen,
+                               other)
+        ref1 = head_kernel.cls_tower_reference(x1, *params1).float()
+        top1 = ref1.abs().max().item()
+        for dev in (torch.device("cuda", 0), other):
+            got1 = head_kernel.cls_tower(
+                x1.to(dev), *[(k.to(dev), b.to(dev)) for k, b in params1])
+            check(got1.device == dev and (got1.float().to(other) - ref1)
+                  .abs().max().item() < 1e-2 * top1,
+                  f"cls tower on {dev} differs from its twin")
+        check(torch.cuda.current_device() == 0,
+              "a launch changed the current device")
+        log("phase 4g device guard: K1, K5 and K6 on cuda:1 with cuda:0 "
+            "current agree with their twins on cuda:1 (K6 after a launch "
+            "on cuda:0)")
+    else:
+        log("phase 4g device guard: one card here, so C1 (each launch on "
+            "its tensors' device) is unverified on the card; the CPU tests "
+            "hold build.launch to it")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -688,7 +737,8 @@ def main() -> None:
     # tiles hang over the border; limits: fp32 atol/rtol 1e-4; bf16 against
     # the twin on the card, which rounds where the kernel rounds, within
     # 1e-2 of the largest logit (at most one bf16 step there) and 1e-4 of it
-    # on average; bf16 against the CPU's twin within 3e-2 of it
+    # on average; bf16 against the CPU's twin within 3e-2 of it. Two runs
+    # of the kernel are equal bit for bit.
     tower_err = {}
     x_levels = ((SERVE_BATCH, 384, 80, 80), (SERVE_BATCH, 768, 40, 40),
                 (SERVE_BATCH, 768, 20, 20))
@@ -699,6 +749,8 @@ def main() -> None:
             params = tower_params(shape[1], mid, nc, dtype, gen, dev)
             got = head_kernel.cls_tower(x, *params)
             torch.cuda.synchronize()
+            check(torch.equal(got, head_kernel.cls_tower(x, *params)),
+                  f"cls tower {shape} {dtype} differs between two runs")
             refs = {"twin": head_kernel.cls_tower_reference(x, *params)}
             if shape[0] < SERVE_BATCH:
                 # the card's convs may sum as the kernel does; the CPU's
@@ -725,7 +777,8 @@ def main() -> None:
                       f"max abs err {err}, mean {mean_err}, largest logit "
                       f"{top}")
                 log(f"phase 4d cls tower {shape} {dtype} vs {name}: max abs "
-                    f"err {err}, mean {mean_err} (largest logit {top})")
+                    f"err {err}, mean {mean_err} (largest logit {top}); two "
+                    f"runs equal")
                 if name == "twin":
                     tower_err[shape, dtype] = err
 
@@ -867,6 +920,9 @@ def main() -> None:
         f"(M x K x N) on this card: {int_mm_rules}; x / 255.0 misses the "
         f"CPU's quotient at {scale_255_differ} of 256 uint8 levels on the "
         f"card, normalize_uint8 at none")
+
+    # ------------------------------- 4g. kernels on a card not current
+    device_guard(gen)
 
     # ------------------------------------------- 5. full-width serving
     det = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
@@ -1546,17 +1602,35 @@ def main() -> None:
         def towers(fn):
             return [fn(f, *packs[i]) for i, f in enumerate(feats)]
 
-        def chain():
-            return [head._tower(f, f"cls{i}_dw1", f"cls{i}_pw1",
-                                f"cls{i}_dw2", f"cls{i}_pw2", f"cls{i}_out")
-                    for i, f in enumerate(feats)]
+        def chain_level(i, f):
+            return head._tower(f, f"cls{i}_dw1", f"cls{i}_pw1",
+                               f"cls{i}_dw2", f"cls{i}_pw2", f"cls{i}_out")
 
-        k6_ms = time_ms(lambda: towers(head_kernel.cls_tower), reps=10)
+        def chain():
+            return [chain_level(i, f) for i, f in enumerate(feats)]
+
+        # device time (profiler) and events, the three levels together
+        # and level by level, for K6 and for the cuDNN chain
+        k6_ms = device_ms(lambda: towers(head_kernel.cls_tower))
+        k6_call_ms = time_ms(lambda: towers(head_kernel.cls_tower), reps=10)
         k6_plain = time_ms(lambda: towers(head_kernel.cls_tower_reference),
                            reps=10)
-        k6_lib = time_ms(chain, reps=10)
-        k6_levels = [time_ms(lambda i=i, f=f: head_kernel.cls_tower(
-            f, *packs[i]), reps=10) for i, f in enumerate(feats)]
+        k6_lib = device_ms(chain)
+        k6_lib_call = time_ms(chain, reps=10)
+        k6_levels, chain_levels = [], []
+        for i, f in enumerate(feats):
+            def one(i=i, f=f):
+                return head_kernel.cls_tower(f, *packs[i])
+
+            def one_chain(i=i, f=f):
+                return chain_level(i, f)
+
+            k6_levels.append({"shape": list(f.shape),
+                              "device_ms": device_ms(one),
+                              "events_ms": time_ms(one, reps=10)})
+            chain_levels.append({"shape": list(f.shape),
+                                 "device_ms": device_ms(one_chain),
+                                 "events_ms": time_ms(one_chain, reps=10)})
     mid, ncls = head.cls_ch, NUM_CLASSES
     k6_dw_ops = k6_mm_ops = k6_bytes = 0
     for f in feats:
@@ -1571,6 +1645,15 @@ def main() -> None:
     k6_t_bytes = k6_bytes / HBM_BYTES_S * 1e3
     k6_bound = (max(k6_t_ops, k6_t_bytes),
                 "operations" if k6_t_ops > k6_t_bytes else "bytes")
+    log(f"phase 7 K6 x/640² B={SERVE_BATCH}, three levels (6 launches): "
+        f"{k6_ms} device ms, {k6_call_ms} ms by events; cuDNN chain "
+        f"{k6_lib} device ms, {k6_lib_call} by events; bound {k6_bound[0]} "
+        f"ms ({k6_bound[1]}); by level (device / events ms) K6 "
+        f"{[(lv['device_ms'], lv['events_ms']) for lv in k6_levels]}, "
+        f"chain {[(lv['device_ms'], lv['events_ms']) for lv in chain_levels]}"
+        f"; K6 {'below' if k6_ms < k6_lib else 'NOT below'} the chain by "
+        f"device time, {'below' if k6_call_ms < k6_lib_call else 'NOT below'}"
+        f" by events")
     # the fp32 kernel (CUDA cores throughout) on the same maps and weights
     feats32 = [f.float().contiguous(memory_format=torch.channels_last)
                for f in feats]
@@ -1692,7 +1775,11 @@ def main() -> None:
                         "sdpa_bwd_call_ms": k4_lib_call},
             "k4_fp32": {"ms": k4_fp32_ms, "bound_ms": k4_fp32_bound[0],
                         "bound_by": k4_fp32_bound[1]}},
-        "cls_tower_ms_by_level": k6_levels,
+        "cls_tower_x640": {
+            "device_ms": k6_ms, "events_ms": k6_call_ms,
+            "chain_device_ms": k6_lib, "chain_events_ms": k6_lib_call,
+            "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
+            "levels": k6_levels, "chain_levels": chain_levels},
         "cls_tower_fp32": {"ms": k6_fp32_ms, "bound_ms": k6_fp32_bound[0],
                            "bound_by": k6_fp32_bound[1]},
         "train_x640_bf16": {
@@ -1704,12 +1791,22 @@ def main() -> None:
     log(json.dumps(timing))
     prof = profile_call(lambda: tal_step(state, tbatch), reps=2)
     log(json.dumps({"card": card, "profile_train_batch": train_n, **prof}))
+    serve_profiles = {}
     for name, detector, tower, keys in variants:
         for key in keys:
-            prof = profile_call(serve_of(detector, tower, inputs[key]))
+            prof = serve_profiles[name, key] = profile_call(
+                serve_of(detector, tower, inputs[key]))
             log(json.dumps({"card": card, "profile_serve": name,
                             "batch": len(inputs[key]), **prof}))
     opt.model.head.fused_cls_tower = False
+    with_k6 = serve_profiles["fused_optimized_cls_tower", "b8"]
+    without_k6 = serve_profiles["fused_optimized", "b8"]
+    log(f"phase 7 serve_optimized B={SERVE_BATCH}: device busy "
+        f"{with_k6['device_busy_ms'] / with_k6['calls']} ms a call with K6, "
+        f"{without_k6['device_busy_ms'] / without_k6['calls']} without "
+        f"(port kernels with K6: "
+        f"{with_k6['by_category_ms_launches'].get('port kernels')} ms, "
+        f"launches)")
     prof = profile_call(eval_and_decode, reps=2)
     log(json.dumps({"card": card, "profile_eval_batch": train_n, **prof}))
 

@@ -7,6 +7,11 @@ of the source, the headers under ``csrc/`` (``*.cuh``, hashed into every
 library) and the flags, so an edited source or header is rebuilt at its
 next use and an unchanged one is reused. :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for every one of them.
+
+Wrappers call a library only through :func:`launch` (a kernel launch, on
+the device of the tensors it is given) and :func:`query` (host-side
+arithmetic such as a shared-memory size); both set each C function's
+``ctypes`` signature once and reuse it.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +47,8 @@ SOURCES = {
 SMEM_LIMIT = 232_448
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# (library, C function name) → the function, its signature set
+_functions: Dict[Tuple[Any, str], Any] = {}
 
 
 def _nvcc() -> str:
@@ -108,10 +115,44 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(lib: ctypes.CDLL, name: str, argtypes: Sequence,
+             restype=ctypes.c_int):
+    """C function ``name`` of ``lib``, its ``argtypes`` and ``restype`` set
+    at the first request and kept (the later requests' are not read)."""
+    key = (lib, name)
+    fn = _functions.get(key)
+    if fn is None:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _functions[key] = fn
+    return fn
+
+
+def query(lib: ctypes.CDLL, name: str, argtypes: Sequence, restype,
+          *args):
+    """Call a host-side C function of ``lib`` (no kernel, no device)."""
+    return function(lib, name, argtypes, restype)(*args)
+
+
+def launch(lib: ctypes.CDLL, name: str, argtypes: Sequence,
+           args: Sequence, device: torch.device, what: str = "") -> None:
+    """Launch through C function ``name`` of ``lib`` on ``device``.
+
+    The C function takes ``args`` (typed by ``argtypes``) and then the
+    stream, and returns a CUDA error code. It is called with ``device``
+    current, so that the kernel and each ``cudaFuncSetAttribute`` before
+    it apply to the device the tensors lie on, and with that device's
+    current stream; a non-zero code raises (:func:`check`)."""
+    fn = function(lib, name, [*argtypes, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, status, what or f"{name} launch")
+
+
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     """Raise if a C entry point of ``lib`` returned a CUDA error code."""
     if status != 0:
-        fn = lib.cuda_error_string
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        fn = function(lib, "cuda_error_string", [ctypes.c_int],
+                      ctypes.c_char_p)
         raise RuntimeError(f"{what}: CUDA error {status} "
                            f"({fn(status).decode()})")

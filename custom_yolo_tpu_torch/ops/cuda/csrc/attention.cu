@@ -42,10 +42,14 @@
 // at 64/128, no spills.
 //
 // fp32 (psa_attention_fwd_kernel): TF32 tensor cores cannot meet the fp32
-// limit (1e-5), so fp32 keeps the CUDA-core kernel: one block takes 32
-// query rows and keeps their fp32 score rows over all T keys, the q tile
-// and kᵀ in shared memory, 4·(32·dk + dk·(T+1) + 32·T) bytes, so the
-// wrapper refuses a T for which that exceeds 232,448 bytes (fp32 only).
+// limit (1e-5), so fp32 stays on the CUDA cores. One block takes 32 query
+// rows and streams the keys in tiles of 64 through a fixed buffer (kᵀ, the
+// 32 x 64 scores, the v tile: 4·(32·dk + 65·dk + 32·64 + 64·dh) bytes,
+// 37 KB at dk=32, dh=64), so shared memory does not grow with T and any T
+// runs. Two passes over the key tiles: the row maximum m and sum
+// l online (l rescaled by exp(m_old − m_new) when m grows), then
+// p = exp(s − m)/l and out += p·v in fp32 in token order. Scores and the
+// softmax use expf and an IEEE division, as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,13 +62,36 @@ namespace {
 // ------------------------------------------------------------ fp32 route
 
 constexpr int ROWS = 32;
+constexpr int KEYS = 64;            // keys of a streamed tile
 constexpr int THREADS = 256;
 constexpr int MAX_DH = 128;
 constexpr int MAX_OUT = ROWS * MAX_DH / THREADS;
 
-__host__ __device__ constexpr long long smem_floats(int seq, int dk) {
-  return (long long)ROWS * dk + (long long)dk * (seq + 1) +
-         (long long)ROWS * seq;
+__host__ __device__ constexpr int smem_floats(int dk, int dh) {
+  return ROWS * dk + dk * (KEYS + 1) + ROWS * KEYS + KEYS * dh;
+}
+
+// s[r][j] = (q_r · k_j) · scale for the tile's n keys, summed over d in
+// ascending order
+__device__ __forceinline__ void score_tile(const float* qs, const float* kt,
+                                           float* s, int rows, int n, int dk,
+                                           float scale) {
+  for (int idx = threadIdx.x; idx < rows * n; idx += THREADS) {
+    const int r = idx / n, j = idx % n;
+    const float* q = qs + r * dk;
+    float acc = 0.f;
+    for (int d = 0; d < dk; ++d) acc += q[d] * kt[d * (KEYS + 1) + j];
+    s[r * KEYS + j] = acc * scale;
+  }
+}
+
+// kᵀ of keys j0..j0+n-1 into kt ([dk][KEYS + 1])
+__device__ __forceinline__ void stage_keys(const float* head, float* kt,
+                                           int j0, int n, int dk, int c_qkv) {
+  for (int idx = threadIdx.x; idx < n * dk; idx += THREADS) {
+    const int j = idx / dk, d = idx % dk;
+    kt[d * (KEYS + 1) + j] = head[(size_t)(j0 + j) * c_qkv + dk + d];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -80,92 +107,98 @@ psa_attention_fwd_kernel(const float* __restrict__ qkv,
   const int c_qkv = nh * per_head;
   const int c_out = nh * dh;
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
 
-  const int kt_stride = seq + 1;
   float* qs = smem;                   // [ROWS][dk]
-  float* kt = qs + ROWS * dk;         // [dk][seq + 1], later v chunks
-  float* s = kt + dk * kt_stride;     // [ROWS][seq]
+  float* kt = qs + ROWS * dk;         // [dk][KEYS + 1]
+  float* s = kt + dk * (KEYS + 1);    // [ROWS][KEYS]: scores, then p
+  float* vs = s + ROWS * KEYS;        // [KEYS][dh]
 
   const float* head = qkv + (size_t)b * seq * c_qkv + (size_t)h * per_head;
+  const float* v = head + 2 * dk;
 
   for (int idx = tid; idx < rows * dk; idx += THREADS) {
     const int r = idx / dk, d = idx % dk;
     qs[r * dk + d] = head[(size_t)(r0 + r) * c_qkv + d];
   }
-  for (int idx = tid; idx < seq * dk; idx += THREADS) {
-    const int j = idx / dk, d = idx % dk;
-    kt[d * kt_stride + j] = head[(size_t)j * c_qkv + dk + d];
-  }
-  __syncthreads();
 
-  // scores: s[r][j] = (q_r · k_j) · scale, fp32
-  for (int idx = tid; idx < rows * seq; idx += THREADS) {
-    const int r = idx / seq, j = idx % seq;
-    const float* q = qs + r * dk;
-    float acc = 0.f;
-    for (int d = 0; d < dk; ++d) acc += q[d] * kt[d * kt_stride + j];
-    s[r * seq + j] = acc * scale;
-  }
-  __syncthreads();
-
-  // softmax over keys, one warp per row
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    float* row = s + r * seq;
-    float m = -INFINITY;
-    for (int j = lane; j < seq; j += 32) m = fmaxf(m, row[j]);
-    for (int o = 16; o > 0; o /= 2)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < seq; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
+  // pass 1: each row's maximum m and sum l of exp(s − m), online over the
+  // key tiles; warp w keeps rows w, w + 8, w + 16, w + 24
+  float m[ROWS / 8], l[ROWS / 8];
+#pragma unroll
+  for (int i = 0; i < ROWS / 8; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int j0 = 0; j0 < seq; j0 += KEYS) {
+    const int n = min(KEYS, seq - j0);
+    __syncthreads();  // the previous tile is no longer read
+    stage_keys(head, kt, j0, n, dk, c_qkv);
+    __syncthreads();
+    score_tile(qs, kt, s, rows, n, dk, scale);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ROWS / 8; ++i) {
+      const int r = warp + 8 * i;
+      if (r >= rows) continue;
+      const float* row = s + r * KEYS;
+      float mx = -INFINITY;
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
+      for (int o = 16; o > 0; o /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+      for (int j = lane; j < n; j += 32) sum += expf(row[j] - m_new);
+      for (int o = 16; o > 0; o /= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[i] = l[i] * expf(m[i] - m_new) + sum;
+      m[i] = m_new;
     }
-    for (int o = 16; o > 0; o /= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < seq; j += 32) row[j] = row[j] / sum;
   }
-  __syncthreads();
 
-  // out[r][e] = Σ_j p[r][j] · v[j][e], summed in fp32 in token order; v
-  // is staged through the kᵀ region, `chunk` tokens at a time
-  const float* v = head + 2 * dk;
-  float* vs = kt;
-  const int chunk = dk * kt_stride / dh;
+  // pass 2: p = exp(s − m) / l per tile, out[r][e] += Σ_j p[r][j] · v[j][e]
+  // in fp32, key by key in token order
   float acc[MAX_OUT];
 #pragma unroll
-  for (int m = 0; m < MAX_OUT; ++m) acc[m] = 0.f;
-  for (int j0 = 0; j0 < seq; j0 += chunk) {
-    const int n = min(chunk, seq - j0);
-    __syncthreads();  // the previous chunk (or kᵀ) is no longer read
+  for (int o = 0; o < MAX_OUT; ++o) acc[o] = 0.f;
+  for (int j0 = 0; j0 < seq; j0 += KEYS) {
+    const int n = min(KEYS, seq - j0);
+    __syncthreads();
+    stage_keys(head, kt, j0, n, dk, c_qkv);
     for (int idx = tid; idx < n * dh; idx += THREADS) {
       const int jj = idx / dh, e = idx % dh;
       vs[jj * dh + e] = v[(size_t)(j0 + jj) * c_qkv + e];
     }
     __syncthreads();
+    score_tile(qs, kt, s, rows, n, dk, scale);
+    __syncthreads();
 #pragma unroll
-    for (int m = 0; m < MAX_OUT; ++m) {
-      const int idx = tid + m * THREADS;
+    for (int i = 0; i < ROWS / 8; ++i) {
+      const int r = warp + 8 * i;
+      if (r >= rows) continue;
+      float* row = s + r * KEYS;
+      for (int j = lane; j < n; j += 32) row[j] = expf(row[j] - m[i]) / l[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int o = 0; o < MAX_OUT; ++o) {
+      const int idx = tid + o * THREADS;
       if (idx < rows * dh) {
         const int r = idx / dh, e = idx % dh;
-        const float* p = s + r * seq + j0;
-        float a = acc[m];
+        const float* p = s + r * KEYS;
+        float a = acc[o];
         for (int jj = 0; jj < n; ++jj) a += p[jj] * vs[jj * dh + e];
-        acc[m] = a;
+        acc[o] = a;
       }
     }
   }
 
   // write out and the bit-exact copy of v
 #pragma unroll
-  for (int m = 0; m < MAX_OUT; ++m) {
-    const int idx = tid + m * THREADS;
+  for (int o = 0; o < MAX_OUT; ++o) {
+    const int idx = tid + o * THREADS;
     if (idx < rows * dh) {
       const int r = idx / dh, e = idx % dh;
-      const size_t o = ((size_t)b * seq + r0 + r) * c_out + (size_t)h * dh + e;
-      out[o] = acc[m];
-      vout[o] = v[(size_t)(r0 + r) * c_qkv + e];
+      const size_t at = ((size_t)b * seq + r0 + r) * c_out + (size_t)h * dh + e;
+      out[at] = acc[o];
+      vout[at] = v[(size_t)(r0 + r) * c_qkv + e];
     }
   }
 }
@@ -346,7 +379,7 @@ int launch_tc_dh(const void* qkv, void* out, void* v, int batch, int seq,
 
 int launch_fp32(const void* qkv, void* out, void* v, int batch, int seq,
                 int nh, int dk, int dh, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(seq, dk);
+  const size_t smem = sizeof(float) * smem_floats(dk, dh);
   cudaError_t err = cudaFuncSetAttribute(
       psa_attention_fwd_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -362,13 +395,7 @@ int launch_fp32(const void* qkv, void* out, void* v, int batch, int seq,
 
 extern "C" {
 
-// Shared memory one block of the fp32 kernel needs for `seq` tokens (the
-// bf16 kernel's does not depend on seq).
-long long psa_attention_smem_bytes(int seq, int dk) {
-  return (long long)sizeof(float) * smem_floats(seq, dk);
-}
-
-// Largest key width (dk, bf16 route) and head width (dh) the kernels take.
+// Largest key width (dk) and head width (dh) the kernels take.
 int psa_attention_max_dk() { return psa::MAX_DK; }
 int psa_attention_max_dh() { return MAX_DH; }
 
@@ -378,6 +405,7 @@ int psa_attention_fwd(const void* qkv, void* out, void* v, int batch, int seq,
                       int nh, int dk, int dh, float scale, int is_bf16,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dk > psa::MAX_DK || dh > MAX_DH) return (int)cudaErrorInvalidValue;
   if (!is_bf16)
     return launch_fp32(qkv, out, v, batch, seq, nh, dk, dh, scale, s);
   if (psa::pad_dk(dk) == 32)

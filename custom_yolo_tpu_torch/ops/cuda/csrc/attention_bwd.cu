@@ -52,12 +52,14 @@
 // 64/64 spills 16 bytes under the three-block bound).
 //
 // fp32: TF32 tensor cores cannot meet the fp32 limit (1e-4), so fp32 keeps
-// the CUDA-core kernels: psa_attention_bwd_dq_kernel keeps one 32-row tile's
-// fp32 score rows and dp rows over all T keys in shared memory,
-// 4·(32·(dk+dh) + dk·(T+1) + 2·32·T) bytes, so the wrapper refuses a T for
-// which that exceeds 232,448 bytes (fp32 only); psa_attention_bwd_dkv_kernel
-// walks the queries 64 at a time per 32-key tile, rebuilding p32 as
-// exp(s − m)/l on scores summed in the same order as the dq kernel.
+// the CUDA-core kernels. psa_attention_bwd_dq_kernel takes 32 query rows
+// and streams the keys in tiles of 64 through a fixed buffer
+// (4·(32·(dk+dh) + 65·dk + 64·(dh+1) + 2·32·64) bytes, 54 KB at dk=32,
+// dh=64), so any T runs, walking them three times as the bf16 dq kernel
+// does: m and l online; delta = rowsum(dp ⊙ p32); ds and dq += ds·k.
+// psa_attention_bwd_dkv_kernel walks the queries 64 at a time per 32-key
+// tile, rebuilding p32 as exp(s − m)/l on scores summed in the same order
+// as the dq kernel; its shared memory does not depend on T either.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,15 +79,59 @@ constexpr int MAX_DH = 128;
 constexpr int MAX_QK = ROWS * MAX_DK / THREADS;  // dq or dk sums per thread
 constexpr int MAX_V = ROWS * MAX_DH / THREADS;   // dv sums per thread
 
-__host__ __device__ constexpr long long dq_smem_floats(int seq, int dk,
-                                                       int dh) {
-  return (long long)ROWS * (dk + dh) + (long long)dk * (seq + 1) +
-         2LL * ROWS * seq;
+constexpr int KEYS = 64;            // keys of a streamed tile (dq kernel)
+
+__host__ __device__ constexpr int dq_smem_floats(int dk, int dh) {
+  return ROWS * (dk + dh) + dk * (KEYS + 1) + KEYS * (dh + 1) +
+         2 * ROWS * KEYS;
 }
 
 __host__ __device__ constexpr long long dkv_smem_floats(int dk, int dh) {
   return (long long)ROWS * (dk + 1) + (long long)ROWS * (dh + 1) +
          (long long)QCHUNK * (dk + dh + 3) + 2LL * QCHUNK * ROWS;
+}
+
+// keys j0..j0+n-1 of one head: kᵀ into kt ([dk][KEYS + 1]) and, when vs
+// is given, v into vs ([KEYS][dh + 1])
+__device__ __forceinline__ void stage_keys(const float* head, float* kt,
+                                           float* vs, int j0, int n, int dk,
+                                           int dh, int c_qkv) {
+  for (int idx = threadIdx.x; idx < n * dk; idx += THREADS) {
+    const int j = idx / dk, d = idx % dk;
+    kt[d * (KEYS + 1) + j] = head[(size_t)(j0 + j) * c_qkv + dk + d];
+  }
+  if (vs == nullptr) return;
+  for (int idx = threadIdx.x; idx < n * dh; idx += THREADS) {
+    const int j = idx / dh, e = idx % dh;
+    vs[j * (dh + 1) + e] = head[(size_t)(j0 + j) * c_qkv + 2 * dk + e];
+  }
+}
+
+// s[r][j] = (q_r · k_j) · scale for the tile's n keys, summed over d in
+// ascending order (the dk/dv kernel repeats exactly this sum)
+__device__ __forceinline__ void score_tile(const float* qs, const float* kt,
+                                           float* s, int rows, int n, int dk,
+                                           float scale) {
+  for (int idx = threadIdx.x; idx < rows * n; idx += THREADS) {
+    const int r = idx / n, j = idx % n;
+    const float* q = qs + r * dk;
+    float acc = 0.f;
+    for (int d = 0; d < dk; ++d) acc += q[d] * kt[d * (KEYS + 1) + j];
+    s[r * KEYS + j] = acc * scale;
+  }
+}
+
+// dp[r][j] = do_r · v_j for the tile's n keys
+__device__ __forceinline__ void dp_tile(const float* dos, const float* vs,
+                                        float* dp, int rows, int n, int dh) {
+  for (int idx = threadIdx.x; idx < rows * n; idx += THREADS) {
+    const int r = idx / n, j = idx % n;
+    const float* g = dos + r * dh;
+    const float* vv = vs + j * (dh + 1);
+    float acc = 0.f;
+    for (int e = 0; e < dh; ++e) acc += g[e] * vv[e];
+    dp[r * KEYS + j] = acc;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -105,12 +151,12 @@ psa_attention_bwd_dq_kernel(const float* __restrict__ qkv,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  const int kt_stride = seq + 1;
-  float* qs = smem;                 // [ROWS][dk]
-  float* dos = qs + ROWS * dk;      // [ROWS][dh]
-  float* kt = dos + ROWS * dh;      // [dk][seq + 1]; v chunks in between
-  float* s = kt + dk * kt_stride;   // [ROWS][seq]: scores, then p32
-  float* dp = s + ROWS * seq;       // [ROWS][seq]: dp, then ds
+  float* qs = smem;                   // [ROWS][dk]
+  float* dos = qs + ROWS * dk;        // [ROWS][dh]
+  float* kt = dos + ROWS * dh;        // [dk][KEYS + 1]
+  float* vs = kt + dk * (KEYS + 1);   // [KEYS][dh + 1]
+  float* s = vs + KEYS * (dh + 1);    // [ROWS][KEYS]: scores, then p32
+  float* dp = s + ROWS * KEYS;        // [ROWS][KEYS]: dp, then ds
 
   const float* head = qkv + (size_t)b * seq * c_qkv + (size_t)h * per_head;
   const float* do_head = dout + (size_t)b * seq * c_out + (size_t)h * dh;
@@ -124,101 +170,106 @@ psa_attention_bwd_dq_kernel(const float* __restrict__ qkv,
     const int r = idx / dh, e = idx % dh;
     dos[idx] = do_head[(size_t)(r0 + r) * c_out + e];
   }
-  for (int idx = tid; idx < seq * dk; idx += THREADS) {
-    const int j = idx / dk, d = idx % dk;
-    kt[d * kt_stride + j] = head[(size_t)j * c_qkv + dk + d];
-  }
-  __syncthreads();
 
-  // s[r][j] = (q_r · k_j) · scale, summed over d in ascending order (the
-  // dk/dv kernel repeats exactly this sum)
-  for (int idx = tid; idx < rows * seq; idx += THREADS) {
-    const int r = idx / seq, j = idx % seq;
-    const float* q = qs + r * dk;
-    float acc = 0.f;
-    for (int d = 0; d < dk; ++d) acc += q[d] * kt[d * kt_stride + j];
-    s[r * seq + j] = acc * scale;
-  }
-  __syncthreads();
-
-  // p32 = exp(s − m) / l, one warp per row; m and l go to the scratch
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    float* row = s + r * seq;
-    float m = -INFINITY;
-    for (int j = lane; j < seq; j += 32) m = fmaxf(m, row[j]);
-    for (int o = 16; o > 0; o /= 2)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < seq; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o /= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < seq; j += 32) row[j] = row[j] / sum;
-    if (lane == 0) {
-      stat[r * 3 + 0] = m;
-      stat[r * 3 + 1] = sum;
-    }
-  }
-
-  // dp[r][j] = do_r · v_j; v is staged through the kᵀ region, `chunk`
-  // tokens at a time, rows padded to dh + 1 words
-  const float* v = head + 2 * dk;
-  float* vs = kt;
-  const int v_stride = dh + 1;
-  const int chunk = dk * kt_stride / v_stride;
-  for (int j0 = 0; j0 < seq; j0 += chunk) {
-    const int n = min(chunk, seq - j0);
-    __syncthreads();  // kᵀ, or the previous chunk, is no longer read
-    for (int idx = tid; idx < n * dh; idx += THREADS) {
-      const int jj = idx / dh, e = idx % dh;
-      vs[jj * v_stride + e] = v[(size_t)(j0 + jj) * c_qkv + e];
-    }
-    __syncthreads();
-    for (int idx = tid; idx < rows * n; idx += THREADS) {
-      const int r = idx / n, jj = idx % n;
-      const float* g = dos + r * dh;
-      const float* vv = vs + jj * v_stride;
-      float acc = 0.f;
-      for (int e = 0; e < dh; ++e) acc += g[e] * vv[e];
-      dp[r * seq + j0 + jj] = acc;
-    }
-  }
-  __syncthreads();
-
-  // delta = rowsum(dp ⊙ p32); ds = p32 ⊙ (dp − delta) · scale in
-  // place of dp; then kᵀ comes back into the region the v chunks used
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    const float* p = s + r * seq;
-    float* g = dp + r * seq;
-    float delta = 0.f;
-    for (int j = lane; j < seq; j += 32) delta += g[j] * p[j];
-    for (int o = 16; o > 0; o /= 2)
-      delta += __shfl_xor_sync(0xffffffffu, delta, o);
-    for (int j = lane; j < seq; j += 32)
-      g[j] = p[j] * (g[j] - delta) * scale;
-    if (lane == 0) stat[r * 3 + 2] = delta;
-  }
-  for (int idx = tid; idx < seq * dk; idx += THREADS) {
-    const int j = idx / dk, d = idx % dk;
-    kt[d * kt_stride + j] = head[(size_t)j * c_qkv + dk + d];
-  }
-  __syncthreads();
-
-  // dq[r][d] = Σ_j ds[r][j] · k[j][d]
+  // Three passes over key tiles of 64, each tile staged into the same
+  // buffer; warp w keeps the statistics of rows w, w + 8, w + 16, w + 24.
+  // (1) the row maximum m and sum l, online (the forward's pass 1)
+  float m[ROWS / 8], l[ROWS / 8], delta[ROWS / 8];
 #pragma unroll
-  for (int m = 0; m < MAX_QK; ++m) {
-    const int idx = tid + m * THREADS;
+  for (int i = 0; i < ROWS / 8; ++i) m[i] = -INFINITY, l[i] = delta[i] = 0.f;
+  for (int j0 = 0; j0 < seq; j0 += KEYS) {
+    const int n = min(KEYS, seq - j0);
+    __syncthreads();  // the previous tile is no longer read
+    stage_keys(head, kt, nullptr, j0, n, dk, dh, c_qkv);
+    __syncthreads();
+    score_tile(qs, kt, s, rows, n, dk, scale);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ROWS / 8; ++i) {
+      const int r = warp + 8 * i;
+      if (r >= rows) continue;
+      const float* row = s + r * KEYS;
+      float mx = -INFINITY;
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, row[j]);
+      for (int o = 16; o > 0; o /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+      for (int j = lane; j < n; j += 32) sum += expf(row[j] - m_new);
+      for (int o = 16; o > 0; o /= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[i] = l[i] * expf(m[i] - m_new) + sum;
+      m[i] = m_new;
+    }
+  }
+
+  // (2) delta = rowsum(dp ⊙ p32), p32 = exp(s − m) / l; (3) ds = p32 ⊙
+  // (dp − delta) · scale, dq += ds · k. dq[r][d] is owned by one thread.
+  float acc[MAX_QK];
+#pragma unroll
+  for (int o = 0; o < MAX_QK; ++o) acc[o] = 0.f;
+  for (int pass = 2; pass <= 3; ++pass) {
+    for (int j0 = 0; j0 < seq; j0 += KEYS) {
+      const int n = min(KEYS, seq - j0);
+      __syncthreads();
+      stage_keys(head, kt, vs, j0, n, dk, dh, c_qkv);
+      __syncthreads();
+      score_tile(qs, kt, s, rows, n, dk, scale);
+      dp_tile(dos, vs, dp, rows, n, dh);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < ROWS / 8; ++i) {
+        const int r = warp + 8 * i;
+        if (r >= rows) continue;
+        const float* row = s + r * KEYS;
+        float* g = dp + r * KEYS;
+        if (pass == 2) {
+          float part = 0.f;
+          for (int j = lane; j < n; j += 32)
+            part += g[j] * (expf(row[j] - m[i]) / l[i]);
+          for (int o = 16; o > 0; o /= 2)
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+          delta[i] += part;
+        } else {
+          for (int j = lane; j < n; j += 32) {
+            const float p = expf(row[j] - m[i]) / l[i];
+            g[j] = p * (g[j] - delta[i]) * scale;
+          }
+        }
+      }
+      if (pass == 2) continue;
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < MAX_QK; ++o) {
+        const int idx = tid + o * THREADS;
+        if (idx < rows * dk) {
+          const int r = idx / dk, d = idx % dk;
+          const float* g = dp + r * KEYS;
+          const float* kk = kt + d * (KEYS + 1);
+          float a = acc[o];
+          for (int j = 0; j < n; ++j) a += g[j] * kk[j];
+          acc[o] = a;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < ROWS / 8; ++i) {
+    const int r = warp + 8 * i;
+    if (r < rows && lane == 0) {
+      stat[r * 3 + 0] = m[i];
+      stat[r * 3 + 1] = l[i];
+      stat[r * 3 + 2] = delta[i];
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < MAX_QK; ++o) {
+    const int idx = tid + o * THREADS;
     if (idx < rows * dk) {
       const int r = idx / dk, d = idx % dk;
-      const float* g = dp + r * seq;
-      const float* kk = kt + d * kt_stride;
-      float acc = 0.f;
-      for (int j = 0; j < seq; ++j) acc += g[j] * kk[j];
       dqkv[((size_t)b * seq + r0 + r) * c_qkv + (size_t)h * per_head + d] =
-          (acc);
+          acc[o];
     }
   }
 }
@@ -691,7 +742,7 @@ int launch_tc_dh(const void* qkv, const void* dout, const void* dv,
 int launch_fp32(const void* qkv, const void* dout, const void* dv, void* dqkv,
                 float* stats, int batch, int seq, int nh, int dk, int dh,
                 float scale, cudaStream_t stream) {
-  const size_t smem_dq = sizeof(float) * dq_smem_floats(seq, dk, dh);
+  const size_t smem_dq = sizeof(float) * dq_smem_floats(dk, dh);
   const size_t smem_dkv = sizeof(float) * dkv_smem_floats(dk, dh);
   cudaError_t err = cudaFuncSetAttribute(
       psa_attention_bwd_dq_kernel,
@@ -718,14 +769,6 @@ int launch_fp32(const void* qkv, const void* dout, const void* dv, void* dqkv,
 
 extern "C" {
 
-// Shared memory the larger of the two fp32 kernels needs for `seq` tokens
-// (the bf16 kernels' does not depend on seq).
-long long psa_attention_bwd_smem_bytes(int seq, int dk, int dh) {
-  const long long a = dq_smem_floats(seq, dk, dh);
-  const long long b = dkv_smem_floats(dk, dh);
-  return (long long)sizeof(float) * (a > b ? a : b);
-}
-
 // Largest key width (dk) and head width (dh) the kernels take.
 int psa_attention_bwd_max_dk() { return MAX_DK; }
 int psa_attention_bwd_max_dh() { return MAX_DH; }
@@ -738,6 +781,7 @@ int psa_attention_bwd(const void* qkv, const void* dout, const void* dv,
                       void* dqkv, void* stats, int batch, int seq, int nh,
                       int dk, int dh, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dk > MAX_DK || dh > MAX_DH) return (int)cudaErrorInvalidValue;
   float* st = static_cast<float*>(stats);
   if (!is_bf16)
     return launch_fp32(qkv, dout, dv, dqkv, st, batch, seq, nh, dk, dh, scale,

@@ -34,9 +34,9 @@ from custom_yolo_tpu_torch.ops.cuda import build
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
-# the kernel walks input channels up to 64 at a time and output channels
-# 128 at a time
-IN_MULTIPLE = 64
+# the kernels walk input channels 32 at a time and output channels in
+# passes of 128, 256 or 384
+IN_MULTIPLE = 32
 MID_MULTIPLE = 128
 
 
@@ -60,24 +60,30 @@ def cls_tower_reference(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair,
     return logits.to(x.dtype)
 
 
-def _stage(lib, x: torch.Tensor, dw: Pair, pw: Pair, out: Pair | None
+def _padded(kernel: torch.Tensor) -> torch.Tensor:
+    """The bf16 logits' kernel with its columns padded by zeros to a
+    multiple of 8, so that the kernel copies its rows 16 bytes at a time
+    (one small copy a call; 172 classes pad to 176)."""
+    if kernel.shape[1] % 8 == 0:
+        return kernel
+    return F.pad(kernel, (0, -kernel.shape[1] % 8))
+
+
+def _stage(x: torch.Tensor, dw: Pair, pw: Pair, out: Pair | None
            ) -> torch.Tensor:
     b, c, h, w = x.shape
     m = pw[0].shape[1]
-    nc = out[0].shape[1] if out is not None else m
+    nc = out[1].shape[0] if out is not None else m
     result = torch.empty((b, nc, h, w), dtype=x.dtype, device=x.device,
                          memory_format=torch.channels_last)
     outk, outb = out if out is not None else pw
-    fn = lib.cls_stage
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(x.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(),
-                pw[0].data_ptr(), pw[1].data_ptr(), outk.data_ptr(),
-                outb.data_ptr(), result.data_ptr(), b, h, w, c, m, nc,
-                int(out is not None), x.element_size(),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, status, "cls_stage launch")
+    build.launch(build.load("head"), "cls_stage",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9,
+                 (x.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(),
+                  pw[0].data_ptr(), pw[1].data_ptr(), outk.data_ptr(),
+                  outb.data_ptr(), result.data_ptr(), b, h, w, c, m, nc,
+                  outk.shape[1], int(out is not None), x.element_size()),
+                 x.device)
     cls_tower.launches += 1
     return result
 
@@ -114,10 +120,14 @@ def cls_tower(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair, pw2: Pair,
                     f"cls_tower: {name} {tuple(tensor.shape)} {tensor.dtype} "
                     f"on {tensor.device}; want contiguous {shape} {x.dtype} "
                     f"on {x.device}")
-    if any(t.data_ptr() % 16 for t in (x, pw1[0], pw2[0])):
-        raise ValueError("cls_tower: x and the 1x1 kernels must start on a "
-                         "16-byte boundary (the kernel loads 16 bytes at a "
-                         "time)")
+    aligned = [x, *dw1, *pw1, *dw2, *pw2]
+    if x.dtype == torch.bfloat16:
+        out = (_padded(out[0]), out[1])
+        aligned.append(out[0])
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError("cls_tower: x and the depthwise, 1x1 and (bf16) "
+                         "logits' kernels must start on a 16-byte boundary "
+                         "(the kernels load 16 bytes at a time)")
     if c % IN_MULTIPLE or mid % MID_MULTIPLE:
         raise ValueError(
             f"cls_tower: {c} input and {mid} middle channels; the kernel "
@@ -126,17 +136,16 @@ def cls_tower(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair, pw2: Pair,
         return torch.empty((x.shape[0], nc, *x.shape[2:]), dtype=x.dtype,
                            device=x.device,
                            memory_format=torch.channels_last)
-    lib = build.load("head")
-    smem = lib.cls_stage_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_longlong
-    need = smem(mid, x.element_size())
+    need = build.query(build.load("head"), "cls_stage_smem_bytes",
+                       [ctypes.c_int] * 2, ctypes.c_longlong, mid,
+                       x.element_size())
     if need > build.SMEM_LIMIT:
         raise ValueError(
             f"cls_tower: {mid} middle channels need {need} bytes of shared "
             f"memory (an 8x8 tile of all of them waits there for the "
             f"logits); the limit is {build.SMEM_LIMIT}")
-    z = _stage(lib, x, dw1, pw1, None)
-    return _stage(lib, z, dw2, pw2, out)
+    z = _stage(x, dw1, pw1, None)
+    return _stage(z, dw2, pw2, out)
 
 
 # one per launch of the stage kernel: two per call of cls_tower

@@ -48,12 +48,6 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("nms_keep: boxes and valid must be contiguous")
 
 
-def _smem_need(lib, name: str, k: int) -> int:
-    fn = getattr(lib, name)
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return fn(k)
-
-
 def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
                      iou_thres: float) -> torch.Tensor:
     """One block per image (``nms_keep_kernel`` of ``ops/cuda/csrc/nms.cu``):
@@ -66,19 +60,17 @@ def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
     if n == 0 or k == 0:
         return keep
     lib = build.load("nms")
-    need = _smem_need(lib, "nms_keep_smem_bytes", k)
+    need = build.query(lib, "nms_keep_smem_bytes", [ctypes.c_int],
+                       ctypes.c_longlong, k)
     if need > build.SMEM_LIMIT:
         raise ValueError(
             f"nms_keep: a pool of K={k} needs {need} bytes of shared memory "
             f"for boxes, areas and flags; the limit is {build.SMEM_LIMIT} "
             f"(K ≤ {build.SMEM_LIMIT // 24})")
-    fn = lib.nms_keep_batched
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), n, k,
-                iou_thres, torch.cuda.current_stream(boxes.device).cuda_stream)
-    build.check(lib, status, "nms_keep_batched launch")
+    build.launch(lib, "nms_keep_batched",
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float],
+                 (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), n, k,
+                  iou_thres), boxes.device)
     nms_keep_batched.launches += 1
     return keep
 
@@ -96,7 +88,8 @@ def nms_keep_single(boxes: torch.Tensor, valid: torch.Tensor,
     if n == 0 or k == 0:
         return keep
     lib = build.load("nms")
-    need = _smem_need(lib, "nms_sweep_smem_bytes", k)
+    need = build.query(lib, "nms_sweep_smem_bytes", [ctypes.c_int],
+                       ctypes.c_longlong, k)
     if need > build.SMEM_LIMIT:
         raise ValueError(
             f"nms_keep: a pool of K={k} needs {need} bytes of shared memory "
@@ -104,14 +97,10 @@ def nms_keep_single(boxes: torch.Tensor, valid: torch.Tensor,
             f"(K ≤ {64 * (build.SMEM_LIMIT // 520)})")
     words = (k + 63) // 64
     mask = torch.empty(n, k, words, dtype=torch.int64, device=boxes.device)
-    fn = lib.nms_keep_bitmask
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                mask.data_ptr(), n, k, iou_thres,
-                torch.cuda.current_stream(boxes.device).cuda_stream)
-    build.check(lib, status, "nms_keep_bitmask launch")
+    build.launch(lib, "nms_keep_bitmask",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float],
+                 (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                  mask.data_ptr(), n, k, iou_thres), boxes.device)
     nms_keep_single.launches += 1
     return keep
 

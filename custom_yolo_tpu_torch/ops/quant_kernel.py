@@ -103,13 +103,11 @@ def stochastic_round(flat: torch.Tensor, seed: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = build.load("quant")
-    fn = lib.stochastic_round_int8
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(flat.data_ptr(), out.data_ptr(), flat.numel(), k0, k1,
-                torch.cuda.current_stream(flat.device).cuda_stream)
-    build.check(lib, status, "stochastic_round launch")
+    build.launch(lib, "stochastic_round_int8",
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                  ctypes.c_uint32, ctypes.c_uint32],
+                 (flat.data_ptr(), out.data_ptr(), flat.numel(), k0, k1),
+                 flat.device)
     stochastic_round.launches += 1
     return out
 

@@ -63,14 +63,10 @@ def sppf_pyramid(x: torch.Tensor) -> torch.Tensor:
             f"of shared memory for two copies of {_CHUNKS[-1]} channels; "
             f"the limit is {build.SMEM_LIMIT}")
     lib = build.load("sppf")
-    fn = lib.sppf_pyramid
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    status = fn(x.data_ptr(), out.data_ptr(), b, h, w, c, chunk,
-                x.element_size(),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, status, "sppf_pyramid launch")
+    build.launch(lib, "sppf_pyramid",
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6,
+                 (x.data_ptr(), out.data_ptr(), b, h, w, c, chunk,
+                  x.element_size()), x.device)
     sppf_pyramid.launches += 1
     return out
 

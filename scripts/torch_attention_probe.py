@@ -6,10 +6,12 @@ one NVIDIA GPU.
 
 The first form builds the two attention libraries, prints their ``ptxas``
 report, holds both kernels to their plain twins on the shapes of
-``chip_smoke.py`` phases 3 and 4b (plus dk=64, dh=128) in bf16 and fp32,
+``chip_smoke.py`` phases 3 and 4b (plus dk=64, dh=128 and T=1600) in bf16
+and in fp32,
 and prints device times (profiler, 20 calls back to back) of K1, K4 and
 ``scaled_dot_product_attention`` forward and backward at the x preset's
-shape (B=8, T=400, nh=6, dk=32, dh=64), K1 at B=1 and at T=1024. The second
+shape (B=8, T=400, nh=6, dk=32, dh=64), K1 at B=1 and at T=1024, and K1
+and K4 on fp32 tensors at the x shape. The second
 builds variants of ``attention.cu``, each with one part of a tile step left
 out (results then are wrong; only their time is read), and times them at
 the same shapes. Exits non-zero if a check fails.
@@ -34,7 +36,8 @@ from custom_yolo_tpu_torch.ops.cuda import build  # noqa: E402
 
 X = (8, 400, 6, 32, 64)
 SHAPES = (X, (3, 37, 2, 8, 16), (2, 1024, 6, 32, 64), (2, 65, 6, 32, 64),
-          (1, 400, 2, 16, 32), (2, 70, 3, 12, 20), (1, 130, 2, 64, 128))
+          (1, 400, 2, 16, 32), (2, 70, 3, 12, 20), (1, 130, 2, 64, 128),
+          (1, 1600, 6, 32, 64))
 # one part of the forward's tile step each, left out of a copy of
 # attention.cu: (name, its text there, what replaces it)
 ABLATIONS = (
@@ -70,8 +73,6 @@ def check(gen, dev) -> bool:
         do32 = torch.randn(b, t, nh * dh, generator=gen).to(dev)
         dv32 = torch.randn(b, t, nh * dh, generator=gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
-            if dtype == torch.float32 and t > 500:
-                continue  # beyond the fp32 route's shared-memory bound
             qkv = qkv32.to(dtype)
             out, v = attention.psa_attention(qkv, nh, dk, dh)
             ref_out, ref_v = attention.psa_attention_reference(qkv, nh, dk, dh)
@@ -108,6 +109,7 @@ def timings(gen, dev) -> None:
     one = qkv[:1].contiguous()
     long = torch.randn(2, 1024, nh * (2 * dk + dh), generator=gen).to(
         dev, torch.bfloat16)
+    qkv32, do32 = qkv.float(), do.float()
     rows = {
         "K1 bf16": lambda: attention.psa_attention(qkv, nh, dk, dh),
         "SDPA": lambda: F.scaled_dot_product_attention(q, k, v),
@@ -118,6 +120,9 @@ def timings(gen, dev) -> None:
         "K1 bf16 B=1": lambda: attention.psa_attention(one, nh, dk, dh),
         "K1 bf16 B=2 T=1024": lambda: attention.psa_attention(long, nh, dk,
                                                               dh),
+        "K1 fp32": lambda: attention.psa_attention(qkv32, nh, dk, dh),
+        "K4 fp32": lambda: attention.psa_attention_bwd(qkv32, do32, do32, nh,
+                                                       dk, dh),
     }
     for name, fn in rows.items():
         print(f"{name}: {device_ms(fn):.5f} device ms", flush=True)

@@ -272,6 +272,19 @@ def test_nms_keep_routes_one_image_to_the_single_kernel(monkeypatch):
     assert seen == ["single", "batched", "batched"]
 
 
+def test_cls_tower_pads_bf16_logits_kernel_to_16_byte_rows():
+    """The bf16 kernel copies the logits' weights 16 bytes a row at a time;
+    the wrapper pads their columns with zeros to a multiple of 8 (172
+    classes → 176) and passes a kernel that already has them as it is."""
+    kernel = torch.randn(16, 172).to(torch.bfloat16)
+    padded = head_kernel._padded(kernel)
+    assert padded.shape == (16, 176) and padded.is_contiguous()
+    assert torch.equal(padded[:, :172], kernel)
+    assert not padded[:, 172:].any()
+    whole = torch.randn(16, 24).to(torch.bfloat16)
+    assert head_kernel._padded(whole) is whole
+
+
 def test_new_wrappers_refuse_instead_of_falling_back():
     """Off the CPU a wrapper launches its kernel or raises; no CUDA device
     is here, so every non-CPU tensor is refused and nothing launches."""

@@ -1,0 +1,235 @@
+"""How the port's wrappers reach their kernels, and fp32 attention at long
+sequences, on the CPU.
+
+``build.launch`` is the one door to a kernel: it runs the C entry point
+with the tensors' device current (so a launch, and each
+``cudaFuncSetAttribute`` before it, lands on the device the data lies on)
+and with that device's stream, sets each function's ``ctypes`` signature
+once, and raises with the library's error string. A fake library and a
+patched ``torch.cuda`` stand in for the card. An AST check holds every
+wrapper under ``custom_yolo_tpu_torch/ops/`` to that door. Then the fp32
+attention twins, forward and backward, against the JAX package at T = 900
+and T = 1600, the sequence lengths the fp32 kernels refused before they
+streamed their key tiles.
+"""
+
+import ast
+import contextlib
+import ctypes
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from custom_yolo_tpu.ops.pallas.attention_kernel import (
+    _psa_attention_bwd_pallas, psa_attention_pallas,
+    psa_attention_reference as jax_attention_reference)
+from custom_yolo_tpu_torch.ops import attention
+from custom_yolo_tpu_torch.ops.cuda import build
+
+torch.set_num_threads(2)
+
+OPS = Path(__file__).resolve().parents[1] / "custom_yolo_tpu_torch" / "ops"
+
+
+# ------------------------------------------------------------ build.launch
+class FakeFunction:
+    """A C function of a fake library: records its calls, the device that
+    was current at each, and every assignment to its signature."""
+
+    def __init__(self, lib, result):
+        self.__dict__.update(lib=lib, result=result, calls=[], sets=[])
+
+    def __setattr__(self, key, value):
+        self.sets.append(key)
+        self.__dict__[key] = value
+
+    def __call__(self, *args):
+        self.calls.append((args, self.lib.current[-1]
+                           if self.lib.current else None))
+        return self.result(args) if callable(self.result) else self.result
+
+
+class FakeLibrary:
+    def __init__(self, status: int):
+        self.current = []
+        self.kernel_fn = FakeFunction(self, status)
+        self.cuda_error_string = FakeFunction(
+            self, lambda args: f"fake error {args[0]}".encode())
+
+
+@pytest.fixture()
+def fake_cuda(monkeypatch):
+    """``torch.cuda.device`` and ``current_stream`` that record what they
+    were given; the library's ``current`` stack is the current device."""
+    streams = []
+    monkeypatch.setattr(build, "_functions", {})
+    state = types.SimpleNamespace(lib=None, streams=streams)
+
+    @contextlib.contextmanager
+    def device(dev):
+        state.lib.current.append(torch.device(dev))
+        try:
+            yield
+        finally:
+            state.lib.current.pop()
+
+    def current_stream(dev=None):
+        streams.append((torch.device(dev), state.lib.current[-1]
+                        if state.lib.current else None))
+        return types.SimpleNamespace(cuda_stream=4000 + torch.device(
+            dev).index)
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    return state
+
+
+def test_launch_runs_on_the_tensor_device_with_its_stream(fake_cuda):
+    lib = fake_cuda.lib = FakeLibrary(status=0)
+    dev = torch.device("cuda", 1)
+    argtypes = [ctypes.c_void_p, ctypes.c_int]
+    build.launch(lib, "kernel_fn", argtypes, (123, 7), dev)
+    # called once, with the stream appended, while cuda:1 was current
+    assert lib.kernel_fn.calls == [((123, 7, 4001), dev)]
+    assert fake_cuda.streams == [(dev, dev)]
+    assert lib.kernel_fn.argtypes == [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p]
+    assert lib.kernel_fn.restype is ctypes.c_int
+    assert lib.current == []           # the guard is left again
+
+
+def test_launch_sets_the_signature_once(fake_cuda):
+    lib = fake_cuda.lib = FakeLibrary(status=0)
+    for index in (0, 1, 0):
+        build.launch(lib, "kernel_fn", [ctypes.c_int], (index,),
+                     torch.device("cuda", index))
+    assert sorted(lib.kernel_fn.sets) == ["argtypes", "restype"]
+    assert [dev for _, dev in lib.kernel_fn.calls] == [
+        torch.device("cuda", i) for i in (0, 1, 0)]
+    assert build.query(lib, "kernel_fn", [ctypes.c_int], ctypes.c_int, 5) \
+        == 0
+    assert sorted(lib.kernel_fn.sets) == ["argtypes", "restype"]
+
+
+def test_launch_raises_with_the_library_error_string(fake_cuda):
+    lib = fake_cuda.lib = FakeLibrary(status=98)
+    with pytest.raises(RuntimeError,
+                       match=r"cls_stage launch: CUDA error 98 \(fake error "
+                             r"98\)"):
+        build.launch(lib, "kernel_fn", [], (), torch.device("cuda", 0),
+                     "cls_stage launch")
+    # the default names the function
+    with pytest.raises(RuntimeError, match="kernel_fn launch: CUDA error"):
+        build.launch(lib, "kernel_fn", [], (), torch.device("cuda", 0))
+    assert lib.cuda_error_string.argtypes == [ctypes.c_int]
+    assert lib.cuda_error_string.restype is ctypes.c_char_p
+    assert lib.current == []
+
+
+# ------------------------------------------------------ one door, checked
+def _is_build_call(node, names) -> bool:
+    return (isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and isinstance(node.func.value, ast.Name)
+            and node.func.value.id == "build" and node.func.attr in names)
+
+
+def test_wrappers_reach_c_only_through_build_launch():
+    """No module under ops/ touches a loaded library except as the first
+    argument of ``build.launch`` (kernels) or ``build.query`` (host-side
+    sizes), nor sets a ctypes signature itself; each C entry point that
+    launches a kernel is named in a ``build.launch``."""
+    launched = set()
+    for path in sorted(OPS.glob("*.py")):
+        tree = ast.parse(path.read_text())
+        parents = {}
+        for node in ast.walk(tree):
+            for child in ast.iter_child_nodes(node):
+                parents[child] = node
+        libs = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("argtypes", "restype"), (
+                    f"{path.name}:{node.lineno} sets a ctypes signature")
+            if _is_build_call(node, ("load",)):
+                parent = parents[node]
+                if isinstance(parent, ast.Assign):
+                    assert [type(t) for t in parent.targets] == [ast.Name], (
+                        f"{path.name}:{node.lineno}")
+                    libs.add(parent.targets[0].id)
+                else:
+                    assert _is_build_call(parent, ("launch", "query")) \
+                        and parent.args[0] is node, (
+                            f"{path.name}:{node.lineno}: a library used "
+                            "outside build.launch/build.query")
+            if _is_build_call(node, ("launch",)):
+                assert isinstance(node.args[1], ast.Constant), (
+                    f"{path.name}:{node.lineno}")
+                launched.add((path.name, node.args[1].value))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Name) and node.id in libs \
+                    and isinstance(node.ctx, ast.Load):
+                parent = parents[node]
+                assert _is_build_call(parent, ("launch", "query")) \
+                    and parent.args[0] is node, (
+                        f"{path.name}:{node.lineno}: library {node.id!r} "
+                        "used outside build.launch/build.query")
+    assert launched == {
+        ("attention.py", "psa_attention_fwd"),
+        ("attention.py", "psa_attention_bwd"),
+        ("nms_kernel.py", "nms_keep_batched"),
+        ("nms_kernel.py", "nms_keep_bitmask"),
+        ("sppf_kernel.py", "sppf_pyramid"),
+        ("head_kernel.py", "cls_stage"),
+        ("quant_kernel.py", "stochastic_round_int8"),
+    }
+
+
+# ---------------------------------------------- fp32 attention at long T
+def _qkv(shape, seed):
+    b, t, nh, dk, dh = shape
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, t, nh * (2 * dk + dh)).astype(np.float32),
+            rng.randn(b, t, nh * dh).astype(np.float32),
+            rng.randn(b, t, nh * dh).astype(np.float32))
+
+
+@pytest.mark.parametrize("t", [900, 1600])
+def test_fp32_attention_twin_matches_jax_at_long_t(t):
+    """out within 1e-5 and v exact against the Pallas kernel (interpret
+    mode) and the einsum reference, as at short T."""
+    nh, dk, dh = 2, 32, 64
+    qkv_np, _, _ = _qkv((1, t, nh, dk, dh), seed=t)
+    out_t, v_t = attention.psa_attention(torch.from_numpy(qkv_np), nh, dk,
+                                         dh)
+    qkv_j = jnp.asarray(qkv_np)
+    for fn in (lambda q: psa_attention_pallas(q, nh, dk, dh, interpret=True),
+               lambda q: jax_attention_reference(q, nh, dk, dh)):
+        out_j, v_j = fn(qkv_j)
+        np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                   atol=1e-5, rtol=1e-5)
+    assert attention.psa_attention.launches == 0
+
+
+@pytest.mark.parametrize("t", [900, 1600])
+def test_fp32_attention_bwd_twin_matches_jax_at_long_t(t):
+    """dqkv within 1e-5 of the Pallas backward kernel (interpret mode) and
+    1e-4 of autodiff through the einsum reference, as at short T."""
+    nh, dk, dh = 2, 32, 64
+    arrays = _qkv((1, t, nh, dk, dh), seed=t + 1)
+    got = attention.psa_attention_bwd(*(torch.from_numpy(a) for a in arrays),
+                                      nh, dk, dh).numpy()
+    qkv_j, do_j, dv_j = (jnp.asarray(a) for a in arrays)
+    want = _psa_attention_bwd_pallas(qkv_j, do_j, dv_j, nh, dk, dh,
+                                     interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+    _, vjp = jax.vjp(lambda x: jax_attention_reference(x, nh, dk, dh), qkv_j)
+    np.testing.assert_allclose(got, np.asarray(vjp((do_j, dv_j))[0]),
+                               atol=1e-4, rtol=1e-4)
+    assert attention.psa_attention_bwd.launches == 0
