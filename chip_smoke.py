@@ -16,9 +16,10 @@ warm-up on), evaluates the trained state (``make_eval_step`` →
 counting kernel launches, compares the card with the CPU in fp32 for
 serving (float and int8), for one train step and for evaluation, and
 times the kernels, the serving variants, the train step and the eval step
-with CUDA events (K1, K4 and K6 and their library yardsticks also by their
+with CUDA events (every kernel and its library yardstick also by its
 device time in a profiler trace; K6 and the head's cuDNN chain level by
-level). With a second card it also runs K1, K5 and K6 on ``cuda:1`` while
+level; K2 and K3 on the serve pool and on a dense pool, split into their
+two kernels). With a second card it also runs K1, K5 and K6 on ``cuda:1`` while
 ``cuda:0`` is current. Any failed check ends the run with a non-zero exit. The
 last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -113,7 +115,7 @@ NMS_OPS_PER_PAIR = 14
 # kernel's name; the last takes the rest
 KERNEL_CATEGORIES = (
     ("port kernels", ("psa_attention_fwd", "psa_attention_bwd",
-                      "nms_keep_kernel", "nms_mask_kernel",
+                      "nms_mask_kernel",
                       "nms_sweep_kernel", "sppf_pyramid_kernel",
                       "cls_stage_kernel", "stochastic_round_kernel")),
     ("int8 product", ("gemm_s8", "imma", "s8s32", "i8816", "i8i8")),
@@ -256,6 +258,19 @@ def device_ms(fn, reps: int = 20) -> float:
     events it leaves out the host's launch path, which at a few
     microseconds of kernel is most of an event time."""
     return profile_call(fn, reps)["device_busy_ms"] / reps
+
+
+def split_ms(fn, reps: int = 20) -> dict:
+    """Device time of one call of ``fn`` (as :func:`device_ms`) and its
+    share by kernel, named by the word before its parameter list."""
+    prof = profile_call(fn, reps)
+    by_kernel = {}
+    for name, ms, _ in prof["top"]:
+        short = re.search(r"(\w+)(<[^>]*>)?\(", name)
+        short = short.group(1) if short else name
+        by_kernel[short] = by_kernel.get(short, 0.0) + ms
+    return {"device_ms": prof["device_busy_ms"] / reps,
+            "by_kernel_ms": by_kernel}
 
 
 def attention_bounds(b: int, t: int, nh: int, dk: int, dh: int,
@@ -532,6 +547,120 @@ def device_guard(gen: torch.Generator) -> None:
             "hold build.launch to it")
 
 
+def nms_checks(dev) -> tuple:
+    """Phase 4: K2 (``nms_keep_batched``) and K3 (``nms_keep_single``)
+    against the twin on the card, keep-sets exactly equal. Returns the
+    summed mismatches of each (0, or the run has failed)."""
+    rng = np.random.RandomState(SEED)
+    batched = single = 0
+
+    def held(boxes_d, valid_d, what, images=()):
+        """K2 on the pool, K3 on the whole pool and on each of ``images``,
+        against the twin; returns (K2's keep, the twin's)."""
+        nonlocal batched, single
+        ref = nms_kernel.nms_keep_reference(boxes_d, valid_d, 0.45)
+        keep = nms_kernel.nms_keep_batched(boxes_d, valid_d, 0.45)
+        torch.cuda.synchronize()
+        wrong = int((keep != ref).sum())
+        check(wrong == 0, f"NMS keep differs, {what}: {wrong} entries")
+        batched += wrong
+        k = boxes_d.shape[1]
+        for img in [slice(None)] + list(images):
+            one = boxes_d[img].reshape(-1, k, 4).contiguous()
+            one_valid = valid_d[img].reshape(-1, k).contiguous()
+            keep_one = nms_kernel.nms_keep_single(one, one_valid, 0.45)
+            torch.cuda.synchronize()
+            wrong = int((keep_one != ref[img].reshape(-1, k)).sum())
+            check(wrong == 0, f"single-image NMS keep differs, {what}, "
+                  f"image {img}: {wrong} entries")
+            single += wrong
+        return keep, ref
+
+    def pool(n, k):
+        boxes, valid = nms_pool(n, max(k, 18), 0.45, rng)
+        return (torch.from_numpy(boxes[:, :k].copy()).to(dev),
+                torch.from_numpy(valid[:, :k].copy()).to(dev))
+
+    for n, k in ((8, 1024), (3, 300)):
+        boxes, valid = nms_pool(n, k, 0.45, rng)
+        boxes_d = torch.from_numpy(boxes).to(dev)
+        valid_d = torch.from_numpy(valid).to(dev)
+        # K3, the single-image route, on each image of the same pools
+        # (and on the whole pool at once: it takes any N)
+        keep, ref = held(boxes_d, valid_d, f"N={n} K={k}", range(n))
+        keep_np = keep.cpu().numpy()
+        for img in range(n - 1):
+            for slot in range(3):
+                if valid[img, 2 * slot] and valid[img, 2 * slot + 1]:
+                    check(bool(keep_np[img, 2 * slot]) and bool(
+                        keep_np[img, 2 * slot + 1]) == (slot != 2),
+                        f"boundary pair {slot} of image {img} mis-kept")
+        check(not keep_np[-1].any(), "an all-invalid image kept a box")
+        log(f"phase 4 nms N={n} K={k}: keep-masks of the batched kernel, "
+            f"of the single-image kernels (image by image and all at once) "
+            f"and of the twin equal ({int(keep.sum())} kept)")
+        if k == 1024:
+            # two calls bit-equal, each route
+            check(torch.equal(keep, nms_kernel.nms_keep_batched(
+                boxes_d, valid_d, 0.45)), "two K2 calls differ")
+            first = nms_kernel.nms_keep_single(boxes_d[:1], valid_d[:1], 0.45)
+            check(torch.equal(first, nms_kernel.nms_keep_single(
+                boxes_d[:1], valid_d[:1], 0.45)), "two K3 calls differ")
+            log("phase 4 nms N=8 K=1024: two calls of each route bit-equal")
+            pool_1024 = boxes_d, valid_d
+    before = read_counts()
+    routed = nms_kernel.nms_keep(boxes_d[:1].contiguous(),
+                                 valid_d[:1].contiguous(), 0.45)
+    after = read_counts()
+    check(routed.equal(ref[:1])
+          and after["nms_single"] == before["nms_single"] + 1
+          and after["nms_batched"] == before["nms_batched"],
+          "nms_keep did not send one image to the single-image kernels")
+
+    # pools whose K is not a multiple of 64, and K below one word
+    for k in (1, 64, 65, 1000):
+        keep, _ = held(*pool(3, k), f"N=3 K={k}", range(3))
+        log(f"phase 4 nms N=3 K={k}: K2, K3 and the twin equal "
+            f"({int(keep.sum())} kept)")
+    # a cluster of identical boxes over boxes 58-69 and 124-131, alone in
+    # a class band: box 58 (and 124) is kept and clears its copies, in its
+    # own 64-box word and in the next
+    boxes_d, valid_d = pool(2, 200)
+    for lo, hi, x in ((58, 70, 0.0), (124, 132, 300.0)):
+        boxes_d[:, lo:hi] = torch.tensor(
+            [25 * MAX_WH + x, 10.0, 25 * MAX_WH + x + 80, 90.0], device=dev)
+        valid_d[:, lo:hi] = True
+    keep, _ = held(boxes_d, valid_d, "straddling clusters", range(2))
+    check(bool(keep[:, 58].all() and keep[:, 124].all()
+               and not keep[:, 59:70].any() and not keep[:, 125:132].any()),
+          "a cluster across boxes 63/64 (or 127/128) was not cleared by "
+          "its first box")
+    log("phase 4 nms clusters over boxes 58-69 and 124-131: the first box "
+        "of each kept, its copies in both words cleared; K2, K3 and the "
+        "twin equal")
+    # C3: a pool of K = 10240, beyond the 9685 (K2) and 28,608 (K3) that
+    # the kernels' shared memory allowed before
+    big_boxes, big_valid = pool(3, 10240)
+    big_boxes, big_valid = big_boxes[:2], big_valid[:2]
+    keep, _ = held(big_boxes, big_valid, "N=2 K=10240", (0,))
+    log(f"phase 4 nms N=2 K=10240 (K2) and N=1 (K3, image 0): equal to the "
+        f"twin ({int(keep.sum())} kept)")
+    # the removed words in global memory, as for K > 65,536: the same
+    # pools with no removed word allowed in shared memory
+    shared_words = nms_kernel.SHARED_REMOVED_WORDS
+    nms_kernel.SHARED_REMOVED_WORDS = 0
+    try:
+        held(*pool_1024, "removed words in global memory, N=8 K=1024",
+             (0,))
+        held(big_boxes[:1].contiguous(), big_valid[:1].contiguous(),
+             "removed words in global memory, N=1 K=10240")
+    finally:
+        nms_kernel.SHARED_REMOVED_WORDS = shared_words
+    log("phase 4 nms with the removed words in global memory (N=8 K=1024, "
+        "N=1 K=10240): equal to the twin")
+    return batched, single
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -599,50 +728,8 @@ def main() -> None:
     qkv_x = torch.randn(b, t, nh * (2 * dk + dh), generator=gen).to(
         dev, torch.bfloat16)
 
-    # ------------------------------------------- 4. K2 against its twin
-    rng = np.random.RandomState(SEED)
-    nms_mismatch = nms_single_mismatch = 0
-    for n, k in ((8, 1024), (3, 300)):
-        boxes, valid = nms_pool(n, k, 0.45, rng)
-        boxes_d = torch.from_numpy(boxes).to(dev)
-        valid_d = torch.from_numpy(valid).to(dev)
-        keep = nms_kernel.nms_keep_batched(boxes_d, valid_d, 0.45)
-        torch.cuda.synchronize()
-        ref = nms_kernel.nms_keep_reference(boxes_d, valid_d, 0.45)
-        mismatch = int((keep != ref).sum())
-        check(mismatch == 0, f"NMS keep differs at N={n} K={k}: "
-              f"{mismatch} entries")
-        # K3, the single-image route, on each image of the same pools
-        # (and on the whole pool at once: it takes any N)
-        for img in list(range(n)) + [slice(None)]:
-            one = boxes_d[img].reshape(-1, k, 4).contiguous()
-            one_valid = valid_d[img].reshape(-1, k).contiguous()
-            keep_one = nms_kernel.nms_keep_single(one, one_valid, 0.45)
-            torch.cuda.synchronize()
-            wrong = int((keep_one != ref[img].reshape(-1, k)).sum())
-            check(wrong == 0, f"single-image NMS keep differs at N={n} "
-                  f"K={k}, image {img}: {wrong} entries")
-            nms_single_mismatch += wrong
-        keep_np = keep.cpu().numpy()
-        for img in range(n - 1):
-            for slot in range(3):
-                if valid[img, 2 * slot] and valid[img, 2 * slot + 1]:
-                    check(bool(keep_np[img, 2 * slot]) and bool(
-                        keep_np[img, 2 * slot + 1]) == (slot != 2),
-                        f"boundary pair {slot} of image {img} mis-kept")
-        check(not keep_np[-1].any(), "an all-invalid image kept a box")
-        nms_mismatch += mismatch
-        log(f"phase 4 nms N={n} K={k}: keep-masks of the batched kernel, "
-            f"of the single-image kernels (image by image and all at once) "
-            f"and of the twin equal ({int(keep.sum())} kept)")
-    before = read_counts()
-    routed = nms_kernel.nms_keep(boxes_d[:1].contiguous(),
-                                 valid_d[:1].contiguous(), 0.45)
-    after = read_counts()
-    check(routed.equal(ref[:1])
-          and after["nms_single"] == before["nms_single"] + 1
-          and after["nms_batched"] == before["nms_batched"],
-          "nms_keep did not send one image to the single-image kernels")
+    # ------------------------------------- 4. K2 and K3 against their twin
+    nms_mismatch, nms_single_mismatch = nms_checks(dev)
 
     # ------------------------------------------- 4b. K4 against its twin
     # the same cases, with random cotangents for out and v
@@ -1529,7 +1616,8 @@ def main() -> None:
                                      torch.bfloat16)[0]
     del qkv_long
 
-    # K2 on the pool the main path hands it: the serve batch's candidates
+    # K2 on the pool the main path hands it: the serve batch's candidates;
+    # device time (profiler) and one call's events
     boxes_s, scores_s = decode_raw_predictions(
         *det(normalize(batch)))
     cand_boxes, _, cand_classes, cand_valid = _gather_candidates(
@@ -1538,8 +1626,16 @@ def main() -> None:
     shifted = (cand_boxes + (cand_classes.float() * MAX_WH)[..., None]
                ).contiguous()
     keep = nms_kernel.nms_keep_batched(shifted, cand_valid, 0.45)
-    k2_ms = time_ms(lambda: nms_kernel.nms_keep_batched(
-        shifted, cand_valid, 0.45))
+
+    def k2_of(bx, vd):
+        return lambda: nms_kernel.nms_keep_batched(bx, vd, 0.45)
+
+    def k3_of(bx, vd):
+        return lambda: nms_kernel.nms_keep_single(bx, vd, 0.45)
+
+    k2_split = split_ms(k2_of(shifted, cand_valid))
+    k2_ms = k2_split["device_ms"]
+    k2_call_ms = time_ms(k2_of(shifted, cand_valid))
     k2_plain = time_ms(lambda: nms_kernel.nms_keep_reference(
         shifted, cand_valid, 0.45), reps=10, warmup=1)
     k2_bound = nms_bound_ms(keep)
@@ -1552,15 +1648,14 @@ def main() -> None:
     check(torch.equal(keep_one, keep[:1]),
           "single-image NMS differs from the batched kernel on the serve "
           "pool")
-    k3_ms = time_ms(lambda: nms_kernel.nms_keep_single(
-        one_boxes, one_valid, 0.45))
-    k3_batched_ms = time_ms(lambda: nms_kernel.nms_keep_batched(
-        one_boxes, one_valid, 0.45))
+    k3_split = split_ms(k3_of(one_boxes, one_valid))
+    k3_ms = k3_split["device_ms"]
+    k3_call_ms = time_ms(k3_of(one_boxes, one_valid))
     k3_plain = time_ms(lambda: nms_kernel.nms_keep_reference(
         one_boxes, one_valid, 0.45), reps=10, warmup=1)
     k3_bound = nms_bound_ms(keep_one)
     # and on a pool where nearly every box survives (random boxes of 20
-    # classes): the batched kernel then pays a block-wide barrier per box
+    # classes): one image for K3, the same image eight times for K2
     dense_boxes, dense_valid = nms_pool(2, 1024, 0.45,
                                         np.random.RandomState(SEED + 4))
     dense_boxes = torch.from_numpy(dense_boxes[:1]).to(dev)
@@ -1569,14 +1664,36 @@ def main() -> None:
     check(torch.equal(dense_keep, nms_kernel.nms_keep_batched(
         dense_boxes, dense_valid, 0.45)), "single-image NMS differs from "
         "the batched kernel on the dense pool")
-    k3_dense_ms = time_ms(lambda: nms_kernel.nms_keep_single(
-        dense_boxes, dense_valid, 0.45))
-    k3_dense_batched_ms = time_ms(lambda: nms_kernel.nms_keep_batched(
-        dense_boxes, dense_valid, 0.45))
+    dense8_boxes = dense_boxes.expand(SERVE_BATCH, -1, -1).contiguous()
+    dense8_valid = dense_valid.expand(SERVE_BATCH, -1).contiguous()
+    check(torch.equal(nms_kernel.nms_keep_batched(
+        dense8_boxes, dense8_valid, 0.45), dense_keep.expand(
+            SERVE_BATCH, -1)), "batched NMS differs image by image on the "
+        "dense pool")
+    nms_times = {
+        "serve_pool": {
+            "k2": {**k2_split, "events_ms": k2_call_ms,
+                   "kept": int(keep.sum()), "images": SERVE_BATCH},
+            "k3": {**k3_split, "events_ms": k3_call_ms,
+                   "kept": int(keep_one.sum()), "images": 1}},
+        "dense_pool": {
+            "k2": {**split_ms(k2_of(dense8_boxes, dense8_valid)),
+                   "events_ms": time_ms(k2_of(dense8_boxes, dense8_valid)),
+                   "kept": int(dense_keep.sum()) * SERVE_BATCH,
+                   "images": SERVE_BATCH},
+            "k3": {**split_ms(k3_of(dense_boxes, dense_valid)),
+                   "events_ms": time_ms(k3_of(dense_boxes, dense_valid)),
+                   "kept": int(dense_keep.sum()), "images": 1}}}
+    for pool, rows in nms_times.items():
+        log(f"phase 7 NMS {pool} (K=1024): " + "; ".join(
+            f"{name} {row['device_ms']} device ms {row['by_kernel_ms']}, "
+            f"{row['events_ms']} ms by events, {row['kept']} kept of "
+            f"{row['images']} images" for name, row in rows.items()))
 
     # K5 at the x preset's p5 map; the library's chain is its twin
     p5 = channels_last((SERVE_BATCH, 384, 20, 20), torch.bfloat16, gen, dev)
-    k5_ms = time_ms(lambda: sppf_kernel.sppf_pyramid(p5))
+    k5_ms = device_ms(lambda: sppf_kernel.sppf_pyramid(p5))
+    k5_call_ms = time_ms(lambda: sppf_kernel.sppf_pyramid(p5))
     k5_plain = time_ms(lambda: sppf_kernel.sppf_pyramid_reference(p5))
 
     def pool_chain():
@@ -1584,7 +1701,8 @@ def main() -> None:
         y2 = F.max_pool2d(y1, 5, 1, 2)
         return torch.cat([p5, y1, y2, F.max_pool2d(y2, 5, 1, 2)], dim=1)
 
-    k5_lib = time_ms(pool_chain)
+    k5_lib = device_ms(pool_chain)
+    k5_lib_call = time_ms(pool_chain)
     k5_bound = roofline(5 * p5.numel() * 2, 3 * 8 * p5.numel(), FP32_FLOPS)
 
     # K6 on what the main path hands it: the three feature maps of the
@@ -1688,12 +1806,16 @@ def main() -> None:
 
     # K7 on the largest leaf of the x model, and over the leaves of one
     # quantize() of the main path, launched back to back
-    k7_ms = time_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
+    k7_ms = device_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
+    k7_call_ms = time_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
     k7_plain = time_ms(lambda: quant_kernel.stochastic_round_reference(
         flat_l, 0), reps=5, warmup=1)
     path_flats = [flat for flat, _ in path_leaves.values()]
     k7_quantize_ms = time_ms(lambda: [quant_kernel.stochastic_round(f, 0)
                                       for f in path_flats], reps=5)
+    k7_quantize_device_ms = device_ms(
+        lambda: [quant_kernel.stochastic_round(f, 0) for f in path_flats],
+        reps=5)
     # bytes: 4 read and 1 written per element; fp32 operations: add,
     # floor, two clamps (Philox's integer work has no peak in the table)
     k7_bound = roofline(5 * flat_l.numel(), 4 * flat_l.numel(), FP32_FLOPS)
@@ -1742,12 +1864,10 @@ def main() -> None:
         "latency_x640_bf16_b1_ms": serve_1,
         "serve_variants_ms": serve_ms,
         "eval_x640_bf16": {"batch": train_n, "step_and_decode_ms": eval_ms},
-        "nms_single_image": {
-            "serve_pool": {"k3_ms": k3_ms, "batched_kernel_ms": k3_batched_ms,
-                           "kept": int(keep_one.sum())},
-            "dense_pool": {"k3_ms": k3_dense_ms,
-                           "batched_kernel_ms": k3_dense_batched_ms,
-                           "kept": int(dense_keep.sum())}},
+        "nms_x640": nms_times,
+        "sppf_x640": {"device_ms": k5_ms, "events_ms": k5_call_ms,
+                      "chain_device_ms": k5_lib,
+                      "chain_events_ms": k5_lib_call},
         "serve_x640_int8_static": {
             "batch": SERVE_BATCH, "ms": serve_ms["int8_static"]["b8"],
             "img_per_s": SERVE_BATCH / serve_ms["int8_static"]["b8"] * 1e3,
@@ -1755,9 +1875,11 @@ def main() -> None:
             "dynamic_b8_ms": serve_ms["int8_dynamic"]["b8"]},
         "quantize_x_k7": {"leaves": n_leaves, "weights": path_weights,
                           "ms": k7_quantize_ms,
+                          "device_ms": k7_quantize_device_ms,
                           "bound_ms": k7_quantize_bound[0],
                           "largest_leaf": list(flat_l.shape),
-                          "largest_leaf_ms": k7_ms},
+                          "largest_leaf_ms": k7_ms,
+                          "largest_leaf_events_ms": k7_call_ms},
         "attention_x640": {
             "shape": [b, t, nh, dk, dh],
             "k1_bf16": {"ms": k1_ms, "call_ms": k1_call_ms,

@@ -4,9 +4,10 @@ Counterpart of ``custom_yolo_tpu/ops/pallas/nms_kernel.py::
 nms_keep_pallas_batched`` (:func:`nms_keep_batched`) and ``nms_keep_pallas``
 (:func:`nms_keep_single`), and of ``custom_yolo_tpu/ops/nms.py::_suppress``.
 Boxes ``(N, K, 4)`` xyxy, score-sorted and class-offset; ``valid (N, K)``
-bool → ``keep (N, K)`` bool, the exact sequential greedy keep-set.
-:func:`nms_keep` sends one image to the single-image kernels and a batch
-to the batched one; both give the same keep-set as the twin.
+bool → ``keep (N, K)`` bool, the exact sequential greedy keep-set, for
+any pool size K. :func:`nms_keep` sends one image to
+:func:`nms_keep_single` and a batch to :func:`nms_keep_batched`; both
+launch the same kernels and give the same keep-set as the twin.
 """
 
 from __future__ import annotations
@@ -33,8 +34,21 @@ def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+# removed words of one image that the sweep keeps in shared memory (K up to
+# 64 × this); a larger pool keeps them in the global scratch. The kernel's
+# own buffer caps it (nms.cu REMOVED_CAP); chip_smoke.py sets it to 0 to
+# drive the global path at small K.
+SHARED_REMOVED_WORDS = 1024
+
+
+def _on_one_cuda_device(boxes: torch.Tensor, valid: torch.Tensor) -> bool:
+    """The device test of :func:`_check`, apart so that a test on a machine
+    without CUDA can stand in for it."""
+    return boxes.device.type == "cuda" and valid.device == boxes.device
+
+
 def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
+    if not _on_one_cuda_device(boxes, valid):
         raise ValueError(f"nms_keep: boxes on {boxes.device} and valid on "
                          f"{valid.device}; both must be on one CUDA device")
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -48,60 +62,53 @@ def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("nms_keep: boxes and valid must be contiguous")
 
 
-def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
-                     iou_thres: float) -> torch.Tensor:
-    """One block per image (``nms_keep_kernel`` of ``ops/cuda/csrc/nms.cu``):
-    the twin for CPU tensors, the kernel for CUDA tensors."""
-    if boxes.device.type == "cpu":
-        return nms_keep_reference(boxes, valid, iou_thres)
+def _launch(boxes: torch.Tensor, valid: torch.Tensor,
+            iou_thres: float) -> torch.Tensor:
+    """``nms_keep_bitmask`` of ``ops/cuda/csrc/nms.cu`` on CUDA tensors:
+    the bit matrix over the whole card, then one sweeping block per image.
+    Any K: the scratch (the matrix, the column words of its diagonal, then
+    the removed words of pools beyond shared memory) is one allocation, and
+    a pool whose matrix does not fit in device memory fails there."""
     _check(boxes, valid)
     n, k, _ = boxes.shape
     keep = torch.empty(n, k, dtype=torch.bool, device=boxes.device)
     if n == 0 or k == 0:
         return keep
-    lib = build.load("nms")
-    need = build.query(lib, "nms_keep_smem_bytes", [ctypes.c_int],
-                       ctypes.c_longlong, k)
-    if need > build.SMEM_LIMIT:
-        raise ValueError(
-            f"nms_keep: a pool of K={k} needs {need} bytes of shared memory "
-            f"for boxes, areas and flags; the limit is {build.SMEM_LIMIT} "
-            f"(K ≤ {build.SMEM_LIMIT // 24})")
-    build.launch(lib, "nms_keep_batched",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float],
-                 (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), n, k,
-                  iou_thres), boxes.device)
-    nms_keep_batched.launches += 1
+    words = (k + 63) // 64
+    scratch = torch.empty(n * (words * (k + 1) + k), dtype=torch.int64,
+                          device=boxes.device)
+    build.launch(build.load("nms"), "nms_keep_bitmask",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_int],
+                 (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                  scratch.data_ptr(), n, k, iou_thres, SHARED_REMOVED_WORDS),
+                 boxes.device)
+    return keep
+
+
+def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
+                     iou_thres: float) -> torch.Tensor:
+    """The keep masks of a batch of images (``nms_keep_bitmask`` of
+    ``ops/cuda/csrc/nms.cu``): the twin for CPU tensors, the kernels for
+    CUDA tensors."""
+    if boxes.device.type == "cpu":
+        return nms_keep_reference(boxes, valid, iou_thres)
+    keep = _launch(boxes, valid, iou_thres)
+    if keep.numel():
+        nms_keep_batched.launches += 1
     return keep
 
 
 def nms_keep_single(boxes: torch.Tensor, valid: torch.Tensor,
                     iou_thres: float) -> torch.Tensor:
-    """The bitmask route (``nms_mask_kernel`` + ``nms_sweep_kernel`` of
-    ``ops/cuda/csrc/nms.cu``), which spreads one image's IoU tests over the
-    card: the twin for CPU tensors, the kernels for CUDA tensors."""
+    """The keep mask of the one image of a request, by the same kernels as
+    :func:`nms_keep_batched` (counted apart, so a run shows which path
+    took them): the twin for CPU tensors, the kernels for CUDA tensors."""
     if boxes.device.type == "cpu":
         return nms_keep_reference(boxes, valid, iou_thres)
-    _check(boxes, valid)
-    n, k, _ = boxes.shape
-    keep = torch.empty(n, k, dtype=torch.bool, device=boxes.device)
-    if n == 0 or k == 0:
-        return keep
-    lib = build.load("nms")
-    need = build.query(lib, "nms_sweep_smem_bytes", [ctypes.c_int],
-                       ctypes.c_longlong, k)
-    if need > build.SMEM_LIMIT:
-        raise ValueError(
-            f"nms_keep: a pool of K={k} needs {need} bytes of shared memory "
-            f"for 64 rows of the bit matrix; the limit is {build.SMEM_LIMIT} "
-            f"(K ≤ {64 * (build.SMEM_LIMIT // 520)})")
-    words = (k + 63) // 64
-    mask = torch.empty(n, k, words, dtype=torch.int64, device=boxes.device)
-    build.launch(lib, "nms_keep_bitmask",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float],
-                 (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                  mask.data_ptr(), n, k, iou_thres), boxes.device)
-    nms_keep_single.launches += 1
+    keep = _launch(boxes, valid, iou_thres)
+    if keep.numel():
+        nms_keep_single.launches += 1
     return keep
 
 

@@ -7,10 +7,12 @@ with the tensors' device current (so a launch, and each
 and with that device's stream, sets each function's ``ctypes`` signature
 once, and raises with the library's error string. A fake library and a
 patched ``torch.cuda`` stand in for the card. An AST check holds every
-wrapper under ``custom_yolo_tpu_torch/ops/`` to that door. Then the fp32
-attention twins, forward and backward, against the JAX package at T = 900
-and T = 1600, the sequence lengths the fp32 kernels refused before they
-streamed their key tiles.
+wrapper under ``custom_yolo_tpu_torch/ops/`` to that door. The NMS
+wrappers hand a pool of K = 10240 to the kernels instead of refusing it,
+as they did while the kernels held per-K state in shared memory. Then the
+fp32 attention twins, forward and backward, against the JAX package at
+T = 900 and T = 1600, the sequence lengths the fp32 kernels refused before
+they streamed their key tiles.
 """
 
 import ast
@@ -28,7 +30,7 @@ import torch
 from custom_yolo_tpu.ops.pallas.attention_kernel import (
     _psa_attention_bwd_pallas, psa_attention_pallas,
     psa_attention_reference as jax_attention_reference)
-from custom_yolo_tpu_torch.ops import attention
+from custom_yolo_tpu_torch.ops import attention, nms_kernel
 from custom_yolo_tpu_torch.ops.cuda import build
 
 torch.set_num_threads(2)
@@ -81,8 +83,8 @@ def fake_cuda(monkeypatch):
     def current_stream(dev=None):
         streams.append((torch.device(dev), state.lib.current[-1]
                         if state.lib.current else None))
-        return types.SimpleNamespace(cuda_stream=4000 + torch.device(
-            dev).index)
+        return types.SimpleNamespace(cuda_stream=4000 + (torch.device(
+            dev).index or 0))
 
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
@@ -182,12 +184,50 @@ def test_wrappers_reach_c_only_through_build_launch():
     assert launched == {
         ("attention.py", "psa_attention_fwd"),
         ("attention.py", "psa_attention_bwd"),
-        ("nms_kernel.py", "nms_keep_batched"),
         ("nms_kernel.py", "nms_keep_bitmask"),
         ("sppf_kernel.py", "sppf_pyramid"),
         ("head_kernel.py", "cls_stage"),
         ("quant_kernel.py", "stochastic_round_int8"),
     }
+
+
+# ------------------------------------------------ NMS pools of any size
+@pytest.mark.parametrize("wrapper,n", [("nms_keep_batched", 2),
+                                       ("nms_keep_single", 1)])
+def test_nms_wrappers_pass_any_pool_size_to_the_kernel(fake_cuda,
+                                                       monkeypatch, wrapper,
+                                                       n):
+    """K = 10240 (the x preset's 8400 anchors with multi-label candidates
+    and ``top_k=10000`` rounds past it) reaches ``nms_keep_bitmask`` with
+    a scratch of the bit matrix, its diagonal's column words and the
+    removed words, and is counted.
+    Meta tensors stand in for CUDA ones; only the device test of the
+    wrapper's check is patched."""
+    lib = fake_cuda.lib = FakeLibrary(status=0)
+    lib.nms_keep_bitmask = FakeFunction(lib, 0)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(nms_kernel, "_on_one_cuda_device",
+                        lambda b, v: b.device == v.device)
+    scratch = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: scratch.append(
+        (a, kw.get("dtype"))) or empty(*a, **kw))
+    fn = getattr(nms_kernel, wrapper)
+    monkeypatch.setattr(fn, "launches", 0)
+    k, words = 10240, 160
+    boxes = empty(n, k, 4, device="meta")
+    valid = empty(n, k, dtype=torch.bool, device="meta")
+    keep = fn(boxes, valid, 0.45)
+    assert keep.shape == (n, k) and keep.dtype == torch.bool
+    [(args, dev)] = lib.nms_keep_bitmask.calls
+    assert args[4:] == (n, k, 0.45, nms_kernel.SHARED_REMOVED_WORDS, 4000)
+    assert dev == torch.device("meta")
+    assert scratch[-1] == ((n * (words * (k + 1) + k),), torch.int64)
+    assert fn.launches == 1
+    # the typed argument list: four pointers, n, k, the fp32 threshold,
+    # the shared-memory limit and the stream
+    assert lib.nms_keep_bitmask.argtypes == [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 # ---------------------------------------------- fp32 attention at long T

@@ -118,7 +118,10 @@ def _threshold_pairs(thres, x0, y0, offset=0.0):
 
 def _nms_pool(n, k, seed, thres):
     """Score-sorted candidate pools: random boxes, boundary pairs, a fully
-    overlapping cluster, and one all-invalid image."""
+    overlapping cluster, and one all-invalid image. A pool whose K is not a
+    multiple of 64 also gets a cluster of identical, valid boxes over boxes
+    60-67, so a box kept in the kernels' first 64-box word clears boxes of
+    the next."""
     rng = np.random.RandomState(seed)
     centers = rng.rand(n, k, 2) * 300
     wh = rng.rand(n, k, 2) * 60 + 5
@@ -131,11 +134,14 @@ def _nms_pool(n, k, seed, thres):
             boxes[img, 2 * slot], boxes[img, 2 * slot + 1] = a, b
         boxes[img, 20:28] = boxes[img, 20]          # identical cluster
     valid = rng.rand(n, k) > 0.15
+    if k % 64:
+        boxes[:, 60:68] = boxes[:, 60:61]
+        valid[:, 60:68] = True
     valid[-1] = False
     return boxes, valid
 
 
-@pytest.mark.parametrize("n,k", [(3, 128), (8, 256)])
+@pytest.mark.parametrize("n,k", [(3, 128), (8, 256), (3, 200)])
 def test_nms_twin_matches_jax_kernel_exactly(n, k):
     thres = 0.45
     boxes, valid = _nms_pool(n, k, seed=n, thres=thres)
@@ -155,6 +161,8 @@ def test_nms_twin_matches_jax_kernel_exactly(n, k):
             a_kept, b_kept = keep_t[img, 2 * slot], keep_t[img, 2 * slot + 1]
             if valid[img, 2 * slot] and valid[img, 2 * slot + 1]:
                 assert a_kept and b_kept == (slot % 3 != 2)
+    if k % 64:      # box 60 clears its copies, 64-67 in the next word too
+        assert keep_t[:-1, 60].all() and not keep_t[:, 61:68].any()
     assert not keep_t[-1].any()
     assert nms_kernel.nms_keep_batched.launches == 0
     assert nms_kernel.nms_keep_single.launches == 0
