@@ -8,7 +8,8 @@ ops/cuda/csrc``, holds each against its plain PyTorch twin on the card
 full-width ``x`` preset (640², 172 classes, bf16, random seeded weights)
 through ``Detector.serve`` and ``Detector.inference``, fused, then also
 through ``optimize_for_serving`` with the fused cls tower on, then int8
-(``quantize(stochastic=True)`` → ``calibrate``), trains the same preset
+(``quantize(stochastic=True)``, one K7 launch for every leaf, →
+``calibrate``), serves one 4K frame (2176 × 3840), trains the same preset
 for a few steps (``create_train_model`` / ``build_optimizer`` /
 ``TrainState.create`` / ``make_train_step``, TAL then nearest, EMA and
 warm-up on), evaluates the trained state (``make_eval_step`` →
@@ -19,9 +20,11 @@ times the kernels, the serving variants, the train step and the eval step
 with CUDA events (every kernel and its library yardstick also by its
 device time in a profiler trace; K6 and the head's cuDNN chain level by
 level; K2 and K3 on the serve pool and on a dense pool, split into their
-two kernels). With a second card it also runs K1, K5 and K6 on ``cuda:1`` while
-``cuda:0`` is current. Any failed check ends the run with a non-zero exit. The
-last line is ``{"ok": true, "device": {...}}``; the line before it is the
+two kernels; K5 at the serve shape, one image, the 4K map and in fp32; K7
+over one ``quantize()``, with its bound counted from its SASS, and the
+whole ``quantize()``). With a second card it also runs K1, K5 and K6 on
+``cuda:1`` while ``cuda:0`` is current. Any failed check ends the run with
+a non-zero exit. The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
 """
 
@@ -68,6 +71,8 @@ SEED = 0
 HW = 640
 NUM_CLASSES = 172
 SERVE_BATCH = 8
+# a 4K frame (3840 wide, 2160 high padded to a multiple of 32)
+K4_SIZE = (2176, 3840)
 TRAIN_BATCH = 8
 TRAIN_MAX_BOXES = 16
 # the small model of the CPU tests, for the card-against-CPU train step and
@@ -141,7 +146,7 @@ COUNTED = {
     "nms_single": nms_kernel.nms_keep_single,
     "sppf": sppf_kernel.sppf_pyramid,
     "cls_tower": head_kernel.cls_tower,
-    "stochastic_round": quant_kernel.stochastic_round,
+    "stochastic_round": quant_kernel.stochastic_round_many,
 }
 
 
@@ -256,8 +261,15 @@ def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn``: the busy time of ``reps`` calls
     back to back in a profiler trace, over ``reps``. Unlike one call's CUDA
     events it leaves out the host's launch path, which at a few
-    microseconds of kernel is most of an event time."""
-    return profile_call(fn, reps)["device_busy_ms"] / reps
+    microseconds of kernel is most of an event time. A trace that holds no
+    device activity (the profiler loses one now and then) is taken again,
+    up to three times."""
+    for _ in range(3):
+        busy = profile_call(fn, reps)["device_busy_ms"]
+        if busy > 0:
+            break
+    check(busy > 0, "three profiler traces held no device activity")
+    return busy / reps
 
 
 def split_ms(fn, reps: int = 20) -> dict:
@@ -364,6 +376,135 @@ def roofline(n_bytes: float, ops: float, peak_ops: float) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# K5 timed at: the x serve shape, one image, a 4K frame's p5 map, fp32
+SPPF_TIMED = (((SERVE_BATCH, 384, 20, 20), torch.bfloat16),
+              ((1, 384, 20, 20), torch.bfloat16),
+              ((1, 384, 68, 120), torch.bfloat16),
+              ((SERVE_BATCH, 384, 20, 20), torch.float32))
+# K7's rates, thread instructions a clock per SM of sm_90 (NVIDIA CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0; the pipes from the Nsight Compute Kernel Profiling Guide): integer
+# multiply-add (IMAD) on the FMA pipe's heavy half, 64; fp32 add and
+# multiply on both halves, 128; integer logic, shift and min/max on the ALU
+# pipe, 64, beside the FMA pipe; conversions, 16; and one warp instruction
+# a clock for each of the 4 schedulers, 128
+RATE_PER_CLOCK_SM = {"imad": 64, "fma_pipe": 128, "alu": 64,
+                     "conversion": 16, "issue": 128}
+
+
+def sppf_bound(x: torch.Tensor) -> tuple:
+    """K5's least time: x read once, four slices written once; three levels
+    of 8 comparisons an element at the fp32 rate."""
+    return roofline(5 * x.numel() * x.element_size(), 3 * 8 * x.numel(),
+                    FP32_FLOPS)
+
+
+def sppf_times(x: torch.Tensor, fn=None) -> dict:
+    """``fn`` (K5's wrapper) on ``x``, and the library's chain (three
+    ``max_pool2d`` and a cat): device time and one call's events each; one
+    call of the twin (the chain and its signs of zeros) by events; the
+    bound."""
+    fn = fn or sppf_kernel.sppf_pyramid
+
+    def chain():
+        return sppf_kernel.max_pool_chain(x)
+
+    bound = sppf_bound(x)
+    return {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+            "device_ms": device_ms(lambda: fn(x)),
+            "events_ms": time_ms(lambda: fn(x)),
+            "chain_device_ms": device_ms(chain),
+            "chain_events_ms": time_ms(chain),
+            "twin_events_ms": time_ms(
+                lambda: sppf_kernel.sppf_pyramid_reference(x)),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock, as nvidia-smi reports it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def sass_instructions(library, kernel: str) -> list:
+    """One kernel's SASS instructions in a built library (``cuobjdump
+    -sass``), each as its text with any predicate."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(cuobjdump), "cuobjdump not found: K7's bound "
+          "counts its SASS")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    out, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        match = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if inside and match:
+            out.append(match.group(1).strip())
+    check(out, f"no SASS found for {kernel}")
+    return out
+
+
+def k7_sass_per_element() -> dict:
+    """The instructions a K7 element needs, counted in the kernel's SASS
+    and divided by the elements a thread takes: Philox's multiplies (an
+    IMAD by one of its multipliers) and xors (LOP3 of LUT 0x96 or 0x3c),
+    the shift of its word by 8, the conversions (I2F, FRND, F2I), the fp32
+    add and multiply, the clip (FMNMX). The leaf search, the addresses and
+    counters, the packing and the elementwise path of a leaf's tail are
+    left out."""
+    sass = sass_instructions(build.library_path("quant"),
+                             "stochastic_round_grouped_kernel")
+    multipliers = tuple(f"{m - (1 << 32):#x}" if m >= 1 << 31 else f"{m:#x}"
+                        for m in quant_kernel.PHILOX_M)
+    kinds = {"multiply": lambda op, ins: op.startswith("IMAD") and any(
+                 f"{m}," in ins for m in multipliers),
+             "xor": lambda op, ins: op.startswith("LOP3") and re.search(
+                 r", 0x(96|3c), !?PT$", ins) is not None,
+             "shift": lambda op, ins: op == "SHF.R.U32.HI"
+             and ", RZ, 0x8," in ins,
+             "conversion": lambda op, ins: op.startswith(("I2F", "F2I",
+                                                          "FRND")),
+             "fp32": lambda op, ins: op in ("FADD", "FMUL", "FFMA"),
+             "clip": lambda op, ins: op == "FMNMX"}
+    counts_ = dict.fromkeys(kinds, 0)
+    for ins in sass:
+        op = ins.split()[0]
+        if op.startswith("@"):      # a predicated instruction: not every
+            continue                # element's work
+        kind = next((k for k, test in kinds.items() if test(op, ins)), None)
+        if kind:
+            counts_[kind] += 1
+    per = {k: n / quant_kernel.PER_THREAD for k, n in counts_.items()}
+    per["issued"] = sum(per.values())
+    per["kernel_sass"] = len(sass) / quant_kernel.PER_THREAD
+    return per
+
+
+def k7_bound_of(n: int, per_element: dict) -> tuple:
+    """(least ms, what bounds it) of K7 on ``n`` elements: 5 bytes an
+    element over the memory rate, or the clocks its instructions need on
+    the busiest of the pipes that run side by side (RATE_PER_CLOCK_SM), at
+    the card's largest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    e = per_element
+    clocks = max(e["multiply"] / RATE_PER_CLOCK_SM["imad"],
+                 (e["multiply"] + e["fp32"]) / RATE_PER_CLOCK_SM["fma_pipe"],
+                 (e["xor"] + e["shift"] + e["clip"])
+                 / RATE_PER_CLOCK_SM["alu"],
+                 e["conversion"] / RATE_PER_CLOCK_SM["conversion"],
+                 e["issued"] / RATE_PER_CLOCK_SM["issue"])
+    times = {"bytes": 5 * n / HBM_BYTES_S * 1e3,
+             "operations": clocks * n / (sms * clock) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def channels_last(shape, dtype, gen, dev) -> torch.Tensor:
@@ -545,6 +686,89 @@ def device_guard(gen: torch.Generator) -> None:
         log("phase 4g device guard: one card here, so C1 (each launch on "
             "its tensors' device) is unverified on the card; the CPU tests "
             "hold build.launch to it")
+
+
+# K5's cases: the x preset's p5 map at batch 8 and 1, a 4K frame's p5 map
+# (x at 2176 x 3840), an fp32 map past the 3,632 pixels the untiled kernel
+# took, ragged maps whose tiles hang over every border, a map narrower than
+# the pooling window reaches, channel counts that are no multiple of a
+# 16-byte vector and a tensor one element past a 16-byte boundary
+SPPF_CASES = (((SERVE_BATCH, 384, 20, 20), (torch.bfloat16, torch.float32)),
+              ((1, 384, 20, 20), (torch.bfloat16,)),
+              ((1, 384, 68, 120), (torch.bfloat16,)),
+              ((1, 64, 62, 62), (torch.float32,)),
+              ((2, 40, 37, 29), (torch.bfloat16, torch.float32)),
+              ((2, 40, 13, 7), (torch.bfloat16, torch.float32)),
+              ((2, 5, 13, 7), (torch.bfloat16,)),
+              ((2, 6, 9, 11), (torch.bfloat16, torch.float32)))
+
+
+def sppf_checks(gen: torch.Generator, dev) -> int:
+    """Phase 4c: K5 against its twin on the card at SPPF_CASES, each with
+    ±inf entries and a whole −inf window, then with signed zeros (a channel
+    of zeros of both signs, and one where windows of negatives hold a zero),
+    then with a NaN. Every output has the twin's bits, the signs of zeros
+    included, and NaN sits where the twin's does (the twin's NaN bits are
+    not held: max.NaN returns the canonical NaN); the zeros whose sign
+    differs from the bare ``max_pool2d`` chain's are counted and printed.
+    Returns the number of values that differ (0)."""
+    mismatch = 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    offsets = [(shape, dtype, 0) for shape, dtypes in SPPF_CASES
+               for dtype in dtypes] + [((2, 40, 37, 29), torch.bfloat16, 1)]
+    for shape, dtype, offset in offsets:
+        b, c, h, w = shape
+        base = torch.randn(b * c * h * w + offset, generator=gen).to(
+            dev, dtype)
+        x = base[offset:].view(b, h, w, c).permute(0, 3, 1, 2)
+        x[0, min(3, c - 1), min(2, h - 1), min(1, w - 1)] = float("inf")
+        x[b - 1, min(4, c - 1), 0, 0] = -float("inf")
+        x[b - 1, c - 1, 4:9, 1:6] = -float("inf")
+        got = sppf_kernel.sppf_pyramid(x)
+        torch.cuda.synchronize()
+        ref = sppf_kernel.sppf_pyramid_reference(x)
+        check(got.shape == ref.shape and got.dtype == dtype
+              and got.is_contiguous(memory_format=torch.channels_last),
+              f"SPPF pyramid result {tuple(got.shape)} {got.dtype}")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        check(torch.equal(got.view(bits), ref.view(bits)),
+              f"SPPF pyramid differs from its twin {shape} {dtype} "
+              f"offset {offset}")
+        mismatch += int((got.view(bits) != ref.view(bits)).sum())
+        # signed zeros: channel 0 all ±0; channel 1 negative with zeros of
+        # both signs, so some windows' maximum is a zero
+        signs = torch.randint(0, 2, (b, h, w), generator=gen).to(dev)
+        x[:, 0] = torch.where(signs > 0, 0.0, -0.0).to(dtype)
+        if c > 1:
+            x[:, 1] = -x[:, 1].abs()
+            x[:, 1, ::3, ::4] = torch.where(signs[:, ::3, ::4] > 0, 0.0,
+                                            -0.0).to(dtype)
+        got = sppf_kernel.sppf_pyramid(x)
+        ref = sppf_kernel.sppf_pyramid_reference(x)
+        zeros = got == 0
+        sign_diff = int((got.view(bits) != ref.view(bits)).sum())
+        check(sign_diff == 0, f"SPPF pyramid with signed zeros differs "
+              f"{shape} {dtype} in {sign_diff} outputs' bits")
+        mismatch += sign_diff
+        chain = sppf_kernel.max_pool_chain(x)
+        chain_diff = int((zeros & (got.view(bits) != chain.view(bits))).sum())
+        x[0, min(1, c - 1), min(4, h - 1), min(4, w - 1)] = float("nan")
+        got = sppf_kernel.sppf_pyramid(x)
+        ref = sppf_kernel.sppf_pyramid_reference(x)
+        nans = int(torch.isnan(got).sum())
+        check(nans > 1 and torch.equal(torch.isnan(got), torch.isnan(ref))
+              and torch.equal(got.nan_to_num(0.0).view(bits),
+                              ref.nan_to_num(0.0).view(bits)),
+              f"SPPF pyramid with a NaN differs {shape} {dtype}")
+        launch = sppf_kernel.launch_shape(b, c, h, w, x.element_size(), sms,
+                                          x.data_ptr(), got.data_ptr())
+        log(f"phase 4c sppf {shape} {dtype} offset {offset} (vec, th, tw, "
+            f"cvb {launch}): equal to the twin, with ±inf and a −inf window, "
+            f"with signed zeros ({int(zeros.sum())} zero outputs, each of "
+            f"the twin's sign; {chain_diff} of another sign than the bare "
+            f"max_pool2d chain's) and with a NaN (spread to {nans} "
+            f"outputs)")
+    return mismatch
 
 
 def nms_checks(dev) -> tuple:
@@ -791,33 +1015,7 @@ def main() -> None:
     dv_x = torch.randn(b, t, nh * dh, generator=gen).to(dev, torch.bfloat16)
 
     # ------------------------------------------- 4c. K5 against its twin
-    # the x preset's p5 map at batch 8, and a ragged map narrower than the
-    # pooling window reaches, each with ±inf entries, then with a NaN
-    sppf_mismatch = 0
-    for shape in ((SERVE_BATCH, 384, 20, 20), (2, 40, 13, 7)):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = channels_last(shape, dtype, gen, dev)
-            x[0, 3, 2, 1] = float("inf")
-            x[1, 5, 0, 0] = -float("inf")
-            x[1, 7, 4:9, 1:6] = -float("inf")
-            got = sppf_kernel.sppf_pyramid(x)
-            torch.cuda.synchronize()
-            ref = sppf_kernel.sppf_pyramid_reference(x)
-            check(got.shape == ref.shape and got.dtype == dtype
-                  and got.is_contiguous(memory_format=torch.channels_last),
-                  f"SPPF pyramid result {tuple(got.shape)} {got.dtype}")
-            check(torch.equal(got, ref),
-                  f"SPPF pyramid differs from its twin {shape} {dtype}")
-            sppf_mismatch += int((got != ref).sum())
-            x[0, 1, 4, 4] = float("nan")
-            got = sppf_kernel.sppf_pyramid(x)
-            ref = sppf_kernel.sppf_pyramid_reference(x)
-            nans = int(torch.isnan(got).sum())
-            check(nans > 1 and torch.equal(torch.isnan(got), torch.isnan(ref))
-                  and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0)),
-                  f"SPPF pyramid with a NaN differs {shape} {dtype}")
-            log(f"phase 4c sppf {shape} {dtype}: bit-exact, with ±inf and "
-                f"with a NaN (spread to {nans} outputs)")
+    sppf_mismatch = sppf_checks(gen, dev)
 
     # ------------------------------------------- 4d. K6 against its twin
     # the x preset's three head levels at batch 8, and a ragged map whose
@@ -873,9 +1071,11 @@ def main() -> None:
     # every ConvBN kernel of the x model (fused fp32, the seed of `det`
     # below) as quantize() hands it to the kernel: (kh·kw·cin, cout),
     # divided by the channel's scale and clipped; seed 0, as every leaf of
-    # the main path gets. Bit-exact against the twin, at most one step from
-    # round-to-nearest; a 64-bit seed on the largest leaf; unbiased over 64
-    # seeds there (the JAX test's bound, 0.45 of a step)
+    # the main path gets; all of them in one grouped launch. Bit-exact
+    # against the twin, at most one step from round-to-nearest; a 64-bit
+    # seed on the largest leaf; unbiased over 64 seeds there (the JAX test's
+    # bound, 0.45 of a step); leaves of odd sizes, one of them not aligned
+    # to 16 bytes
     p = PRESETS["x"]
     xq = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
                   precision="bfloat16", input_size=(HW, HW), device="cuda")
@@ -884,10 +1084,10 @@ def main() -> None:
     k7_mismatch = k7_far = 0
     path_leaves = {}            # the main path's leaves: (operand, K7 result)
     leaves = [key for key in xq._state if key.endswith(".conv.weight")]
-    for key in leaves:
-        flat, _ = quant.stochastic_operand(xq._state[key])
-        got = quant_kernel.stochastic_round(flat, 0)
-        torch.cuda.synchronize()
+    flats = [quant.stochastic_operand(xq._state[key])[0] for key in leaves]
+    rounded = quant_kernel.stochastic_round_many(flats, 0)
+    torch.cuda.synchronize()
+    for key, flat, got in zip(leaves, flats, rounded):
         ref = quant_kernel.stochastic_round_reference(flat, 0)
         k7_mismatch += int((got != ref).sum())
         k7_far = max(k7_far, int((got.int() - torch.round(flat).int())
@@ -895,9 +1095,21 @@ def main() -> None:
         if not any(part in quant.DEFAULT_QUANT_SKIP
                    for part in key.split(".")):
             path_leaves[key] = (flat, got)
+    del flats, rounded
     check(k7_mismatch == 0, f"K7 differs from its twin in {k7_mismatch} "
           f"elements over {len(leaves)} leaves")
     check(k7_far <= 1, f"K7 rounded {k7_far} steps from the nearest")
+    odd = torch.rand(1 + 3 + 1023 + 1025 + 4097 + 7 + 1, generator=gen)
+    odd = ((odd - 0.5) * 254).to(dev)
+    odd_leaves = [odd[:1], odd[1:4], odd[4:1027].view(31, 33),
+                  odd[1027:2052], odd[2052:6149], odd[6149:6156], odd[:0]]
+    for seed in (3, 2 ** 33 + 1):
+        for flat, got in zip(odd_leaves, quant_kernel.stochastic_round_many(
+                odd_leaves, seed)):
+            check(torch.equal(got, quant_kernel.stochastic_round_reference(
+                flat, seed)), f"K7 differs from its twin on a leaf of "
+                  f"{flat.numel()} at {flat.data_ptr() % 16} bytes past 16, "
+                  f"seed {seed}")
     largest = max(leaves, key=lambda key: xq._state[key].numel())
     flat_l, _ = quant.stochastic_operand(xq._state[largest])
     seed_hi = 2 ** 40 + 7
@@ -922,8 +1134,11 @@ def main() -> None:
                 if not torch.equal(q_card[k].cpu(), v)]
     check(not q_differ, f"int8 state: card differs from CPU at {q_differ[:4]}")
     log(f"phase 4e stochastic round: {len(leaves)} leaves of the x model "
-        f"({sum(xq._state[k].numel() for k in leaves)} weights), kernel "
-        f"equal to its twin bit for bit at seed 0 and at {seed_hi} on "
+        f"({sum(xq._state[k].numel() for k in leaves)} weights) in one "
+        f"launch, each equal to its twin bit for bit at seed 0; leaves of "
+        f"{[f.numel() for f in odd_leaves]} elements, "
+        f"{[f.data_ptr() % 16 for f in odd_leaves]} bytes past 16, equal at "
+        f"seeds 3 and 2**33 + 1; at {seed_hi} on "
         f"{largest} {tuple(flat_l.shape)}; at most {k7_far} step from the "
         f"nearest; over 64 seeds mean error {k7_bias_mean:.3g}, largest "
         f"{k7_bias_max:.4f} steps (limit 0.45); round-to-nearest int8 "
@@ -1145,10 +1360,10 @@ def main() -> None:
     torch.cuda.synchronize()
     quantize_launches = read_counts()
     n_leaves = sum(key.endswith(".conv.scale") for key in q8._state)
-    check(quantize_launches == counts(stochastic_round=n_leaves)
+    check(quantize_launches == counts(stochastic_round=1)
           and n_leaves == len(path_leaves),
-          f"quantize launched {quantize_launches}, want K7 once for each "
-          f"of {n_leaves} int8 leaves ({len(path_leaves)} in phase 4e)")
+          f"quantize launched {quantize_launches}, want K7 once for all "
+          f"{n_leaves} int8 leaves ({len(path_leaves)} in phase 4e)")
     for key, (_, q) in path_leaves.items():
         o, i, kh, kw = q8._state[key].shape
         check(torch.equal(q8._state[key], q.view(kh, kw, i, o)
@@ -1224,7 +1439,7 @@ def main() -> None:
           f"{INT8_STEPS}/127 of {int8_top}), box-logit Pearson "
           f"{int8_opt_corr} (limit {INT8_OPT_CORR})")
     log(f"phase 5c x preset int8 (stochastic, skip {quant.DEFAULT_QUANT_SKIP}"
-        f", static): {n_leaves} int8 leaves, K7 launched once each at "
+        f", static): {n_leaves} int8 leaves, K7 launched once for all at "
         f"quantize and equal to phase 4e's; calibrate on two batches; "
         f"detections {result8.num_valid.cpu().tolist()}, inference "
         f"{len(dets8[0])}; box logits vs bf16 fused Pearson {int8_corr} "
@@ -1234,6 +1449,39 @@ def main() -> None:
         f"; launches quantize {quantize_launches}, calibrate "
         f"{calibrate_launches}, serve + inference {serve8_launches}")
     del q8one, q8opt, dyn_state
+
+    # ------------------------------------------- 5d. a 4K frame, full width
+    # the seed of `det` at 2176 x 3840 (a 68 x 120 p5 map, which K5 refused
+    # in bf16 before it worked on tiles), B=1, fused bf16: one serve, K5
+    # once, K3 for the batch of one, detections; its events time
+    big = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
+                   precision="bfloat16", input_size=K4_SIZE, device="cuda")
+    big.init(SEED)
+    big.fuse()
+    frame = torch.randint(0, 256, (1, *K4_SIZE, 3),
+                          generator=torch.Generator().manual_seed(SEED + 9),
+                          dtype=torch.uint8).to(dev)
+    reset_counts()
+    result4k = big.serve(frame, conf_thres=POOL_CONF, device_preprocess=True)
+    torch.cuda.synchronize()
+    launches4k = read_counts()
+    check(launches4k == counts(attention=2, nms_single=1, sppf=1),
+          f"4K serve launched {launches4k}, want attention 2, single-image "
+          f"NMS 1 (a batch of one), SPPF 1")
+    for name in result4k._fields:
+        value = getattr(result4k, name)
+        if value.is_floating_point():
+            check(bool(torch.isfinite(value).all()),
+                  f"4K serve: non-finite {name}")
+    check(int(result4k.num_valid.min()) > 0, "4K serve returned no detection")
+    serve4k_ms = time_ms(lambda: big.serve(frame, conf_thres=POOL_CONF,
+                                           device_preprocess=True),
+                         reps=5, warmup=1)
+    log(f"phase 5d x preset {K4_SIZE[0]}x{K4_SIZE[1]} bf16 B=1 (p5 map "
+        f"{K4_SIZE[0] // 32}x{K4_SIZE[1] // 32}): detections "
+        f"{result4k.num_valid.cpu().tolist()}, launches {launches4k}; "
+        f"serve {serve4k_ms} ms by events, median of 5 | {card}")
+    del big, frame, result4k
 
     # ------------------------------------------- 6. card against CPU
     gpu32 = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
@@ -1690,20 +1938,15 @@ def main() -> None:
             f"{row['events_ms']} ms by events, {row['kept']} kept of "
             f"{row['images']} images" for name, row in rows.items()))
 
-    # K5 at the x preset's p5 map; the library's chain is its twin
-    p5 = channels_last((SERVE_BATCH, 384, 20, 20), torch.bfloat16, gen, dev)
-    k5_ms = device_ms(lambda: sppf_kernel.sppf_pyramid(p5))
-    k5_call_ms = time_ms(lambda: sppf_kernel.sppf_pyramid(p5))
-    k5_plain = time_ms(lambda: sppf_kernel.sppf_pyramid_reference(p5))
-
-    def pool_chain():
-        y1 = F.max_pool2d(p5, 5, 1, 2)
-        y2 = F.max_pool2d(y1, 5, 1, 2)
-        return torch.cat([p5, y1, y2, F.max_pool2d(y2, 5, 1, 2)], dim=1)
-
-    k5_lib = device_ms(pool_chain)
-    k5_lib_call = time_ms(pool_chain)
-    k5_bound = roofline(5 * p5.numel() * 2, 3 * 8 * p5.numel(), FP32_FLOPS)
+    # K5 at the shapes of SPPF_TIMED, beside the library's chain (its
+    # twin's code) and the bound; the serve shape's row goes to the
+    # kernels line
+    k5_rows = []
+    for shape, dtype in SPPF_TIMED:
+        k5_rows.append(sppf_times(channels_last(shape, dtype, gen, dev)))
+        log(f"phase 7 K5 {json.dumps(k5_rows[-1])} | {card}")
+    k5 = k5_rows[0]
+    k5_bound = (k5["bound_ms"], k5["bound_by"])
 
     # K6 on what the main path hands it: the three feature maps of the
     # serve batch and the head's own weights; one call is all three levels
@@ -1804,24 +2047,57 @@ def main() -> None:
     k4_fp32_ms = device_ms(k4_of(qkv_fp32, do_x.float(), dv_x.float()))
     del qkv_fp32
 
-    # K7 on the largest leaf of the x model, and over the leaves of one
-    # quantize() of the main path, launched back to back
-    k7_ms = device_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
-    k7_call_ms = time_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
-    k7_plain = time_ms(lambda: quant_kernel.stochastic_round_reference(
-        flat_l, 0), reps=5, warmup=1)
+    # K7 over the leaves of one quantize() of the main path (one grouped
+    # launch) and on the largest leaf alone: device time and events; its
+    # twin over the same leaves; the bound from the kernel's SASS; then one
+    # whole Detector.quantize(stochastic=True) by events (the per-leaf
+    # operand passes stay eager), median of three fresh fused detectors
     path_flats = [flat for flat, _ in path_leaves.values()]
-    k7_quantize_ms = time_ms(lambda: [quant_kernel.stochastic_round(f, 0)
-                                      for f in path_flats], reps=5)
-    k7_quantize_device_ms = device_ms(
-        lambda: [quant_kernel.stochastic_round(f, 0) for f in path_flats],
-        reps=5)
-    # bytes: 4 read and 1 written per element; fp32 operations: add,
-    # floor, two clamps (Philox's integer work has no peak in the table)
-    k7_bound = roofline(5 * flat_l.numel(), 4 * flat_l.numel(), FP32_FLOPS)
     path_weights = sum(flat.numel() for flat in path_flats)
-    k7_quantize_bound = roofline(5 * path_weights, 4 * path_weights,
-                                 FP32_FLOPS)
+
+    def k7_quantize():
+        return quant_kernel.stochastic_round_many(path_flats, 0)
+
+    k7_ms = device_ms(k7_quantize, reps=10)
+    k7_call_ms = time_ms(k7_quantize, reps=10)
+    k7_plain = time_ms(lambda: [quant_kernel.stochastic_round_reference(f, 0)
+                                for f in path_flats], reps=3, warmup=1)
+    k7_leaf_ms = device_ms(lambda: quant_kernel.stochastic_round(flat_l, 0))
+    k7_leaf_call_ms = time_ms(lambda: quant_kernel.stochastic_round(flat_l,
+                                                                    0))
+    k7_ops = k7_sass_per_element()
+    k7_bound = k7_bound_of(path_weights, k7_ops)
+    k7_leaf_bound = k7_bound_of(flat_l.numel(), k7_ops)
+    quantize_times, quantize_peaks = [], []
+    for _ in range(3):
+        fresh = x_detector()
+        fresh.init(SEED)
+        fresh.fuse()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fresh.quantize(stochastic=True)
+        end.record()
+        end.synchronize()
+        quantize_times.append(start.elapsed_time(end))
+        quantize_peaks.append(torch.cuda.max_memory_allocated() - before)
+        del fresh
+    quantize_ms = statistics.median(quantize_times)
+    log(f"phase 7 K7 one quantize() ({len(path_flats)} leaves, "
+        f"{path_weights} weights, 1 launch): {k7_ms} device ms, "
+        f"{k7_call_ms} events ms, bound {k7_bound[0]} ms by "
+        f"{k7_bound[1]}; largest leaf {tuple(flat_l.shape)}: {k7_leaf_ms} "
+        f"device ms, {k7_leaf_call_ms} events, bound {k7_leaf_bound[0]} by "
+        f"{k7_leaf_bound[1]}; per element from the SASS: "
+        f"{k7_ops} (the whole kernel's SASS: {k7_ops['kernel_sass']} an "
+        f"element); SM clock "
+        f"{sm_clock_hz() / 1e6} MHz; twin {k7_plain} ms; whole "
+        f"Detector.quantize(stochastic=True) {quantize_ms} ms by events "
+        f"(of {quantize_times}), its peak {max(quantize_peaks)} bytes above "
+        f"the fused detector's allocation (of {quantize_peaks}) | {card}")
 
     train_ms = time_ms(lambda: tal_step(state, tbatch), reps=5, warmup=1)
 
@@ -1865,21 +2141,25 @@ def main() -> None:
         "serve_variants_ms": serve_ms,
         "eval_x640_bf16": {"batch": train_n, "step_and_decode_ms": eval_ms},
         "nms_x640": nms_times,
-        "sppf_x640": {"device_ms": k5_ms, "events_ms": k5_call_ms,
-                      "chain_device_ms": k5_lib,
-                      "chain_events_ms": k5_lib_call},
+        "sppf": k5_rows,
+        "serve_4k_bf16_b1_ms": serve4k_ms,
         "serve_x640_int8_static": {
             "batch": SERVE_BATCH, "ms": serve_ms["int8_static"]["b8"],
             "img_per_s": SERVE_BATCH / serve_ms["int8_static"]["b8"] * 1e3,
             "b1_ms": serve_ms["int8_static"]["b1"],
             "dynamic_b8_ms": serve_ms["int8_dynamic"]["b8"]},
         "quantize_x_k7": {"leaves": n_leaves, "weights": path_weights,
-                          "ms": k7_quantize_ms,
-                          "device_ms": k7_quantize_device_ms,
-                          "bound_ms": k7_quantize_bound[0],
+                          "launches": 1, "device_ms": k7_ms,
+                          "events_ms": k7_call_ms,
+                          "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+                          "sass_per_element": k7_ops,
                           "largest_leaf": list(flat_l.shape),
-                          "largest_leaf_ms": k7_ms,
-                          "largest_leaf_events_ms": k7_call_ms},
+                          "largest_leaf_device_ms": k7_leaf_ms,
+                          "largest_leaf_events_ms": k7_leaf_call_ms,
+                          "largest_leaf_bound_ms": k7_leaf_bound[0],
+                          "detector_quantize_events_ms": quantize_ms,
+                          "detector_quantize_peak_bytes": max(
+                              quantize_peaks)},
         "attention_x640": {
             "shape": [b, t, nh, dk, dh],
             "k1_bf16": {"ms": k1_ms, "call_ms": k1_call_ms,
@@ -1966,15 +2246,16 @@ def main() -> None:
                      bwd_err[x_shape, torch.bfloat16], k4_ms, k4_plain,
                      k4_bound, k4_lib),
         kernel_entry("sppf_pyramid", "sppf", "sppf.cu",
-                     "pallas/sppf_kernel.py:36", float(sppf_mismatch), k5_ms,
-                     k5_plain, k5_bound, k5_lib),
+                     "pallas/sppf_kernel.py:36", float(sppf_mismatch),
+                     k5["device_ms"], k5["twin_events_ms"], k5_bound,
+                     k5["chain_device_ms"]),
         kernel_entry("cls_tower", "cls_tower", "head.cu",
                      "pallas/head_kernel.py:52",
                      max(tower_err[s, torch.bfloat16] for s in x_levels),
                      k6_ms, k6_plain, k6_bound, k6_lib),
-        kernel_entry("stochastic_round_int8", "stochastic_round", "quant.cu",
-                     "quant.py:69", float(k7_mismatch), k7_ms, k7_plain,
-                     k7_bound, None),
+        kernel_entry("stochastic_round_int8_grouped", "stochastic_round",
+                     "quant.cu", "quant.py:69", float(k7_mismatch), k7_ms,
+                     k7_plain, k7_bound, None),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

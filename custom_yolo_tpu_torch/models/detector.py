@@ -449,8 +449,8 @@ class Detector:
         """Switch to int8 serving: fuse if needed, quantize each ConvBN's
         fp32 folded kernel per output channel (the head's logit projections
         stay float), and rebuild with int8 convs. ``stochastic`` rounds with
-        kernel K7 (one launch per int8 leaf, seed 0 for every leaf, as in
-        the JAX package). ``skip``: backbone stages kept float, ``"auto"``
+        kernel K7 (one launch for all int8 leaves, seed 0 for every leaf, as
+        in the JAX package). ``skip``: backbone stages kept float, ``"auto"``
         for ``ops.quant.DEFAULT_QUANT_SKIP``, ``()`` for none.
 
         Activations are then quantized per batch (*dynamic*, one absmax

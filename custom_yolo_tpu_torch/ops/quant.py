@@ -4,7 +4,8 @@
 * **Weights**: per-output-channel symmetric int8, ``scale = absmax/127``
   (1.0 for an all-zero channel), quantized once from the *fused* fp32
   kernels, round-to-nearest or seeded stochastic rounding
-  (:func:`stochastic_quantize_int8`, kernel K7).
+  (:func:`stochastic_quantize_int8_many`, kernel K7, one launch for all
+  leaves).
 * **Activations**: per-tensor symmetric int8, dynamic (absmax of the batch)
   or static (an ``in_scale`` calibrated offline, :func:`bake_static_scales`).
 * **Contraction**: int8 × int8 → int32, exact, then dequantized as
@@ -23,12 +24,13 @@ Tree functions work on flat state dicts: a quantized conv leaf is
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.nn.functional as F
 
-from custom_yolo_tpu_torch.ops.quant_kernel import stochastic_round
+from custom_yolo_tpu_torch.ops.quant_kernel import stochastic_round_many
 
 # Backbone stages that ``Detector.quantize(skip="auto")`` keeps in float:
 # the JAX package's measured set (shallow stages where int8 requantization
@@ -73,14 +75,27 @@ def stochastic_operand(kernel: torch.Tensor
     return scaled.reshape(-1, scaled.shape[-1]).contiguous(), scale
 
 
+def stochastic_quantize_int8_many(kernels: Sequence[torch.Tensor],
+                                  seed: int = 0
+                                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-channel int8 with seeded *stochastic* rounding (unbiased:
+    E[q] = k/scale) of each OIHW kernel: the scales and the clips here, the
+    rounding of all of them by one launch of K7, each kernel drawing at its
+    own flat indices under ``seed``."""
+    operands = [stochastic_operand(kernel) for kernel in kernels]
+    rounded = stochastic_round_many([flat for flat, _ in operands], seed)
+    out = []
+    for kernel, q, (_, scale) in zip(kernels, rounded, operands):
+        o, i, kh, kw = kernel.shape
+        out.append((q.view(kh, kw, i, o).permute(3, 2, 0, 1).contiguous(),
+                    scale))
+    return out
+
+
 def stochastic_quantize_int8(kernel: torch.Tensor, seed: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel int8 with seeded *stochastic* rounding (unbiased:
-    E[q] = k/scale): the scale and the clip here, the rounding by K7."""
-    flat, scale = stochastic_operand(kernel)
-    o, i, kh, kw = kernel.shape
-    q = stochastic_round(flat, seed).view(kh, kw, i, o)
-    return q.permute(3, 2, 0, 1).contiguous(), scale
+    """:func:`stochastic_quantize_int8_many` of one kernel."""
+    return stochastic_quantize_int8_many([kernel], seed)[0]
 
 
 # ------------------------------------------------------------ activations
@@ -213,11 +228,13 @@ def quantize_fused_params(state: Mapping[str, torch.Tensor],
     int8 with ``….conv.scale`` beside it, ``….conv.bias`` fp32. The head's
     logit projections (``…_out``, which hold no ``.conv``) and every module
     under a name in ``skip`` stay float. Stochastic rounding seeds every
-    leaf with 0, as the JAX package does."""
+    leaf with 0, as the JAX package does, and rounds all of them in one
+    launch of K7."""
     if any(".bn." in key for key in state):
         raise ValueError("quantize_fused_params expects a fused state (fuse "
                          "first)")
     out: Dict[str, torch.Tensor] = {}
+    leaves = []
     for key, value in state.items():
         prefix = key[:-len(".weight")]
         if (not key.endswith(".conv.weight") or value.dtype == torch.int8
@@ -225,10 +242,14 @@ def quantize_fused_params(state: Mapping[str, torch.Tensor],
                 or any(part in skip for part in key.split("."))):
             out.setdefault(key, value)
             continue
-        q, s = (stochastic_quantize_int8(value) if stochastic
-                else quantize_kernel_int8(value))
-        out[key], out[f"{prefix}.scale"] = q, s
+        leaves.append(key)
+        out[key] = out[f"{prefix}.scale"] = None      # filled below
         out[f"{prefix}.bias"] = state[f"{prefix}.bias"].float()
+    kernels = [state[key] for key in leaves]
+    quantized = (stochastic_quantize_int8_many(kernels) if stochastic
+                 else [quantize_kernel_int8(kernel) for kernel in kernels])
+    for key, (q, s) in zip(leaves, quantized):
+        out[key], out[f"{key[:-len('.weight')]}.scale"] = q, s
     return out
 
 

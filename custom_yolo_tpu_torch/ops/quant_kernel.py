@@ -8,7 +8,9 @@ clipped to ±127, and returns ``clip(floor(flat + u), -127, 127)`` as int8,
 with ``u`` uniform in [0, 1).
 
 Each element draws ``u`` from Philox4x32-10, keyed by the seed, at the
-counter of its flat (row-major) index: ``u = (word0 >> 8) · 2⁻²⁴``. The
+counter of its flat (row-major) index within its array: ``u = (word0 >> 8)
+· 2⁻²⁴``. :func:`stochastic_round_many` rounds many arrays (a model's int8
+leaves) in one launch; :func:`stochastic_round` is that for one. The
 kernel (``ops/cuda/csrc/quant.cu``) and :func:`stochastic_round_reference`
 compute the same stream, so they agree bit for bit. Neither matches the JAX
 package's own streams (the TPU core's generator on a TPU, ``jax.random``
@@ -19,7 +21,7 @@ caller, which is how the tests hold the rounding to JAX's.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -86,30 +88,87 @@ def stochastic_round_reference(flat: torch.Tensor, seed: int
     return stochastic_round_given(flat, u)
 
 
-def stochastic_round(flat: torch.Tensor, seed: int) -> torch.Tensor:
-    """Stochastic rounding of float32 ``flat`` to int8 under ``seed``: the
-    twin for CPU tensors, the CUDA kernel (``ops/cuda/csrc/quant.cu``) for
-    CUDA tensors."""
-    if flat.device.type == "cpu":
-        return stochastic_round_reference(flat, seed)
-    if flat.device.type != "cuda":
-        raise ValueError(f"stochastic_round: unsupported device {flat.device}")
-    if flat.dtype != torch.float32:
-        raise TypeError(f"stochastic_round: dtype {flat.dtype}; want float32")
-    if not flat.is_contiguous():
-        raise ValueError("stochastic_round: flat must be contiguous")
+# elements a thread and a block of the kernel take (its PER_THREAD and
+# BLOCK_ELEMS; the C entry point checks the latter)
+PER_THREAD = 8
+BLOCK_ELEMS = 256 * PER_THREAD
+# each result starts on a 16-byte boundary of one int8 buffer
+_ALIGN = 16
+
+
+def _on_one_cuda_device(flats: Sequence[torch.Tensor],
+                        device: torch.device) -> bool:
+    return device.type == "cuda" and all(f.device == device for f in flats)
+
+
+def leaf_table(flats: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]
+               ) -> Tuple[list, int]:
+    """The kernel's table of leaves, one row (source address, destination
+    address, elements, first block) for each non-empty array, and the
+    blocks of all of them; a leaf takes ⌈n / BLOCK_ELEMS⌉ blocks."""
+    rows, blocks = [], 0
+    for flat, out in zip(flats, outs):
+        if flat.numel():
+            rows.append((flat.data_ptr(), out.data_ptr(), flat.numel(),
+                         blocks))
+            blocks += -(-flat.numel() // BLOCK_ELEMS)
+    return rows, blocks
+
+
+def stochastic_round_many(flats: Sequence[torch.Tensor], seed: int
+                          ) -> List[torch.Tensor]:
+    """Stochastic rounding of each float32 array of ``flats`` to int8 under
+    ``seed``, each drawing its uniforms at its own flat indices (so each
+    result equals :func:`stochastic_round_reference` of that array alone):
+    the twins for CPU tensors, one launch of the CUDA kernel
+    (``ops/cuda/csrc/quant.cu``) over all of them for CUDA tensors, whose
+    results are views of one int8 buffer."""
+    flats = list(flats)
     k0, k1 = _key(seed)
-    out = torch.empty(flat.shape, dtype=torch.int8, device=flat.device)
-    if out.numel() == 0:
-        return out
+    if all(flat.device.type == "cpu" for flat in flats):
+        return [stochastic_round_reference(flat, seed) for flat in flats]
+    device = flats[0].device
+    if not _on_one_cuda_device(flats, device):
+        raise ValueError("stochastic_round: unsupported devices "
+                         f"{sorted({str(f.device) for f in flats})} (all "
+                         "arrays on one CUDA device or all on the CPU)")
+    for flat in flats:
+        if flat.dtype != torch.float32:
+            raise TypeError(f"stochastic_round: dtype {flat.dtype}; want "
+                            "float32")
+        if not flat.is_contiguous():
+            raise ValueError("stochastic_round: each array must be "
+                             "contiguous")
+    # one allocation for all results, each on a 16-byte boundary
+    sizes = []
+    for flat in flats:
+        sizes += [flat.numel(), -flat.numel() % _ALIGN]
+    parts = torch.empty(sum(sizes), dtype=torch.int8,
+                        device=device).split(sizes)
+    outs = [part.view(flat.shape) for part, flat in zip(parts[::2], flats)]
+    rows, blocks = leaf_table(flats, outs)
+    if not rows:
+        return outs
+    # the table of leaves (quant.cu's Leaf rows), in one asynchronous copy
+    # to the card from pinned memory; both allocators hand their memory on
+    # only to work queued after the kernel
+    table = torch.tensor(rows, dtype=torch.int64,
+                         pin_memory=device.type == "cuda").to(
+                             device, non_blocking=True)
     lib = build.load("quant")
-    build.launch(lib, "stochastic_round_int8",
-                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                  ctypes.c_uint32, ctypes.c_uint32],
-                 (flat.data_ptr(), out.data_ptr(), flat.numel(), k0, k1),
-                 flat.device)
-    stochastic_round.launches += 1
-    return out
+    build.launch(lib, "stochastic_round_int8_grouped",
+                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32],
+                 (table.data_ptr(), len(rows), blocks, BLOCK_ELEMS, k0, k1),
+                 device)
+    stochastic_round_many.launches += 1
+    return outs
 
 
-stochastic_round.launches = 0
+stochastic_round_many.launches = 0
+
+
+def stochastic_round(flat: torch.Tensor, seed: int) -> torch.Tensor:
+    """Stochastic rounding of one float32 array ``flat`` to int8 under
+    ``seed``: :func:`stochastic_round_many` of a list of one."""
+    return stochastic_round_many([flat], seed)[0]

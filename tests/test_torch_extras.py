@@ -62,17 +62,30 @@ def nhwc(tensor):
 
 # ------------------------------------------------------------ SPPF (K5)
 @pytest.mark.parametrize("shape,dtype,special", [
-    ((2, 20, 20, 24), "float32", False),
-    ((2, 20, 20, 24), "bfloat16", False),
-    ((3, 13, 7, 10), "float32", False),          # ragged, smaller than 5 wide
-    ((2, 9, 11, 8), "bfloat16", True),           # ±inf entries
-], ids=["fp32", "bf16", "ragged", "inf"])
+    ((2, 20, 20, 24), "float32", None),
+    ((2, 20, 20, 24), "bfloat16", None),
+    ((3, 13, 7, 10), "float32", None),           # ragged, smaller than 5 wide
+    ((2, 9, 11, 8), "bfloat16", "inf"),          # ±inf entries
+    ((2, 62, 62, 8), "float32", "inf"),          # past the old fp32 limit
+    ((2, 12, 11, 3), "float32", "zeros"),        # zeros of both signs
+    ((2, 12, 11, 3), "bfloat16", "zeros"),
+], ids=["fp32", "bf16", "ragged", "inf", "62x62", "zeros-fp32",
+        "zeros-bf16"])
 def test_sppf_twin_matches_jax_kernel_bit_for_bit(shape, dtype, special):
-    x = np.random.RandomState(4).randn(*shape).astype(np.float32)
-    if special:
+    """Every output's bits. Where a window's maximum is a zero and the
+    window holds zeros of both signs, the JAX kernel (``jnp.maximum``)
+    gives +0 whatever their order, and so does the twin."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(*shape).astype(np.float32)
+    if special == "inf":
         x[0, 2, 3, 1] = np.inf
         x[1, 0, 0, 5] = -np.inf
         x[1, 4:9, 5:10, 2] = -np.inf               # a whole window of −inf
+    if special == "zeros":
+        x = -np.abs(x)
+        zeros = rng.rand(*shape) < 0.15
+        x[zeros] = np.where(rng.rand(int(zeros.sum())) < 0.5, 0.0, -0.0)
+        x[0, :, :, 0] = np.where(rng.rand(*shape[1:3]) < 0.5, 0.0, -0.0)
     x_j = jnp.asarray(x, dtype)
     x_t = nchw(x, getattr(torch, dtype))
     assert x_t.is_contiguous(memory_format=torch.channels_last)
@@ -80,7 +93,10 @@ def test_sppf_twin_matches_jax_kernel_bit_for_bit(shape, dtype, special):
     assert got.dtype == x_t.dtype and got.shape == (
         shape[0], 4 * shape[3], shape[1], shape[2])
     want = np.asarray(sppf_pyramid_pallas(x_j, interpret=True), np.float32)
-    np.testing.assert_array_equal(nhwc(got), want)        # tolerance: none
+    if special == "zeros":
+        assert (want == 0).sum() > 100 and np.signbit(want[want == 0]).any()
+    np.testing.assert_array_equal(nhwc(got).view(np.int32),
+                                  want.view(np.int32))    # tolerance: none
     assert sppf_kernel.sppf_pyramid.launches == 0
 
 

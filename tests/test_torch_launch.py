@@ -9,7 +9,11 @@ once, and raises with the library's error string. A fake library and a
 patched ``torch.cuda`` stand in for the card. An AST check holds every
 wrapper under ``custom_yolo_tpu_torch/ops/`` to that door. The NMS
 wrappers hand a pool of K = 10240 to the kernels instead of refusing it,
-as they did while the kernels held per-K state in shared memory. Then the
+as they did while the kernels held per-K state in shared memory; the SPPF
+wrapper hands a 4K frame's p5 map to its kernel, which works on tiles,
+where it refused maps whose two copies did not fit in shared memory; the
+grouped stochastic rounding builds one table of leaves and launches once.
+Then the
 fp32 attention twins, forward and backward, against the JAX package at
 T = 900 and T = 1600, the sequence lengths the fp32 kernels refused before
 they streamed their key tiles.
@@ -30,7 +34,8 @@ import torch
 from custom_yolo_tpu.ops.pallas.attention_kernel import (
     _psa_attention_bwd_pallas, psa_attention_pallas,
     psa_attention_reference as jax_attention_reference)
-from custom_yolo_tpu_torch.ops import attention, nms_kernel
+from custom_yolo_tpu_torch.ops import (attention, nms_kernel, quant_kernel,
+                                       sppf_kernel)
 from custom_yolo_tpu_torch.ops.cuda import build
 
 torch.set_num_threads(2)
@@ -187,7 +192,7 @@ def test_wrappers_reach_c_only_through_build_launch():
         ("nms_kernel.py", "nms_keep_bitmask"),
         ("sppf_kernel.py", "sppf_pyramid"),
         ("head_kernel.py", "cls_stage"),
-        ("quant_kernel.py", "stochastic_round_int8"),
+        ("quant_kernel.py", "stochastic_round_int8_grouped"),
     }
 
 
@@ -228,6 +233,107 @@ def test_nms_wrappers_pass_any_pool_size_to_the_kernel(fake_cuda,
     # the shared-memory limit and the stream
     assert lib.nms_keep_bitmask.argtypes == [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+# ----------------------------------------------- SPPF maps of any size
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 384, 68, 120), torch.bfloat16),    # x at 2176 × 3840, p5 map
+    ((1, 64, 62, 62), torch.float32),       # past 3,632 fp32 pixels
+], ids=["bf16-4k", "fp32-62x62"])
+def test_sppf_wrapper_passes_any_map_size_to_the_kernel(fake_cuda,
+                                                        monkeypatch, shape,
+                                                        dtype):
+    """Maps whose two copies exceeded a block's shared memory (the old
+    kernel's limit, 2·H·W·size·8 > 232,448 bytes) reach ``sppf_pyramid``
+    as tiles of at most 16 × 16 pixels within 48 KB, and are counted.
+    Meta tensors stand in for CUDA ones; only the wrapper's device test
+    and its reading of the card's SM count are patched."""
+    lib = fake_cuda.lib = FakeLibrary(status=0)
+    lib.sppf_pyramid = FakeFunction(lib, 0)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(sppf_kernel, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(sppf_kernel, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(sppf_kernel.sppf_pyramid, "launches", 0)
+    b, c, h, w = shape
+    x = torch.empty(shape, dtype=dtype, device="meta",
+                    memory_format=torch.channels_last)
+    out = sppf_kernel.sppf_pyramid(x)
+    assert out.shape == (b, 4 * c, h, w) and out.dtype == dtype
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    [(args, dev)] = lib.sppf_pyramid.calls
+    assert dev == torch.device("meta") and sppf_kernel.sppf_pyramid.launches == 1
+    nb, nh, nw, nv, size, vec, th, tw, cvb, stream = args[2:]
+    assert (nb, nh, nw, size, stream) == (b, h, w, x.element_size(), 4000)
+    assert vec * size == 16 and nv * vec == c          # 16-byte vectors
+    assert 1 <= th <= 16 and 1 <= tw <= 16 and cvb >= 1
+    # three row maxima of the tile and a halo of 6 rows, in 48 KB
+    assert 3 * (th + 12) * tw * cvb * 16 <= 48 * 1024
+    assert lib.sppf_pyramid.argtypes == [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+@pytest.mark.parametrize("b,c,h,w,size,sms,vec,blocks", [
+    (8, 384, 20, 20, 2, 132, 8, 384),   # the x serve shape on an H100
+    (1, 384, 20, 20, 2, 132, 8, 192),   # one image still spreads
+    (8, 384, 20, 20, 4, 132, 4, 768),
+    (2, 5, 13, 7, 2, 132, 1, 10),       # odd C: one bf16 channel a thread
+    (2, 6, 9, 11, 2, 132, 1, 12),
+    (1, 6, 9, 11, 4, 132, 1, 6),
+    (1, 384, 20, 20, 2, 16, 8, 48),     # a card of 16 SMs: wider chunks
+])
+def test_sppf_launch_shape_spreads_over_the_card(b, c, h, w, size, sms, vec,
+                                                 blocks):
+    """The vector width follows C, tiles split the map evenly, and the
+    blocks reach the SMs: at least two for each of the card's SMs where the
+    map allows, the most otherwise."""
+    got_vec, th, tw, cvb = sppf_kernel.launch_shape(b, c, h, w, size, sms,
+                                                    0, 0)
+    assert got_vec == vec
+    tiles = -(-h // th) * -(-w // tw)
+    assert -(-h // th) * th - h < -(-h // th) and th <= 16 and tw <= 16
+    assert b * tiles * -(-(c // vec) // cvb) == blocks
+    # a tensor one element past a 16-byte boundary takes one at a time
+    assert sppf_kernel.launch_shape(b, c, h, w, size, sms, size,
+                                    0)[0] == 1
+
+
+# ------------------------------------- grouped stochastic rounding (K7)
+def test_grouped_stochastic_round_builds_one_table_and_launches_once(
+        fake_cuda, monkeypatch):
+    """Leaves of odd sizes (and an empty one) go to
+    ``stochastic_round_int8_grouped`` in one launch with one table row
+    each: addresses, elements and the first block, ⌈n / 2048⌉ blocks a
+    leaf. Meta tensors stand in for CUDA ones."""
+    lib = fake_cuda.lib = FakeLibrary(status=0)
+    lib.stochastic_round_int8_grouped = FakeFunction(lib, 0)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(quant_kernel, "_on_one_cuda_device",
+                        lambda flats, dev: True)
+    monkeypatch.setattr(quant_kernel.stochastic_round_many, "launches", 0)
+    sizes = (1, 3, 0, 1023, 1025, 6912 * 7)
+    flats = [torch.empty(n, device="meta") for n in sizes]
+    outs = quant_kernel.stochastic_round_many(flats, 2 ** 40 + 7)
+    assert [o.shape for o in outs] == [f.shape for f in flats]
+    assert all(o.dtype == torch.int8 for o in outs)
+    [(args, dev)] = lib.stochastic_round_int8_grouped.calls
+    assert quant_kernel.BLOCK_ELEMS == 2048
+    blocks = [-(-n // 2048) for n in sizes if n]
+    assert args[1:] == (5, sum(blocks), 2048, 7, 2 ** 8, 4000)
+    assert dev == torch.device("meta")
+    assert quant_kernel.stochastic_round_many.launches == 1
+    assert lib.stochastic_round_int8_grouped.argtypes == [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p]
+    # the rows, with real addresses
+    cpu = [torch.zeros(n) for n in sizes]
+    cpu_out = [torch.empty(n, dtype=torch.int8) for n in sizes]
+    rows, total = quant_kernel.leaf_table(cpu, cpu_out)
+    firsts = np.cumsum([0] + blocks[:-1]).tolist()
+    assert rows == [(f.data_ptr(), o.data_ptr(), f.numel(), first)
+                    for (f, o), first in zip(
+                        [(f, o) for f, o in zip(cpu, cpu_out) if f.numel()],
+                        firsts)]
+    assert total == sum(blocks)
 
 
 # ---------------------------------------------- fp32 attention at long T

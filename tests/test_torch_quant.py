@@ -162,7 +162,7 @@ def test_philox_twin_is_seeded_and_deterministic():
     edge = torch.full((4,), 127.0)
     assert quant_kernel.stochastic_round_given(
         edge, torch.full((4,), 1 - 2.0 ** -24)).max() == 127
-    assert quant_kernel.stochastic_round.launches == 0
+    assert quant_kernel.stochastic_round_many.launches == 0
 
 
 def test_stochastic_twin_is_unbiased():
@@ -182,7 +182,49 @@ def test_stochastic_round_refuses_off_the_cpu():
         quant_kernel.stochastic_round(torch.empty(4, 4, device="meta"), 0)
     with pytest.raises(ValueError, match="64-bit"):
         quant_kernel.stochastic_round(torch.zeros(4, 4), -1)
-    assert quant_kernel.stochastic_round.launches == 0
+    assert quant_kernel.stochastic_round_many.launches == 0
+
+
+def test_grouped_twin_equals_the_twin_of_each_leaf():
+    """``stochastic_round_many`` on the CPU: each leaf, whatever its size
+    or its neighbours, draws at its own flat indices, so it equals the
+    twin of that leaf alone bit for bit."""
+    rng = np.random.RandomState(11)
+    flats = [torch.from_numpy(rng.uniform(-127, 127, shape).astype(
+        np.float32)) for shape in ((1,), (3,), (0, 5), (1023,), (1025,),
+                                   (27, 37), (288, 40))]
+    for seed in (0, 2 ** 40 + 7):
+        got = quant_kernel.stochastic_round_many(flats, seed)
+        assert len(got) == len(flats)
+        for flat, q in zip(flats, got):
+            assert q.shape == flat.shape and q.dtype == torch.int8
+            assert torch.equal(q, quant_kernel.stochastic_round_reference(
+                flat, seed))
+            assert torch.equal(q, quant_kernel.stochastic_round(flat, seed))
+    assert quant_kernel.stochastic_round_many.launches == 0
+
+
+def test_quantize_fused_params_rounds_every_leaf_as_alone():
+    """The stochastic state of a whole model, rounded in one group, holds
+    for each leaf what ``stochastic_quantize_int8`` gives it alone, in the
+    same key order as round to nearest."""
+    det = port_detector()
+    det.init(seed=2)
+    det.fuse()
+    state = det._state
+    grouped = quant.quantize_fused_params(state, stochastic=True,
+                                          skip=quant.DEFAULT_QUANT_SKIP)
+    nearest = quant.quantize_fused_params(state,
+                                          skip=quant.DEFAULT_QUANT_SKIP)
+    assert list(grouped) == list(nearest)
+    n = 0
+    for prefix in quant.quant_prefixes(grouped):
+        q, s = quant.stochastic_quantize_int8(state[f"{prefix}.weight"])
+        assert torch.equal(grouped[f"{prefix}.weight"], q)
+        assert torch.equal(grouped[f"{prefix}.scale"], s)
+        n += 1
+    assert n > 10
+    assert quant_kernel.stochastic_round_many.launches == 0
 
 
 # ----------------------------------------------------------- contraction
@@ -513,7 +555,7 @@ def test_detector_quantize_serves_on_cpu(stochastic):
     assert torch.isfinite(res.scores).all()
     got = det(x)[0].numpy().ravel()
     assert np.corrcoef(ref, got)[0, 1] > 0.99
-    assert quant_kernel.stochastic_round.launches == 0
+    assert quant_kernel.stochastic_round_many.launches == 0
 
 
 @pytest.mark.parametrize("calibrated", [False, True],
