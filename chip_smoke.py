@@ -13,9 +13,14 @@ through ``optimize_for_serving`` with the fused cls tower on, then int8
 for a few steps (``create_train_model`` / ``build_optimizer`` /
 ``TrainState.create`` / ``make_train_step``, TAL then nearest, EMA and
 warm-up on), evaluates the trained state (``make_eval_step`` →
-``decode_predictions`` → ``DetectionMetrics`` / ``COCOmAP``), all while
-counting kernel launches, compares the card with the CPU in fp32 for
-serving (float and int8), for one train step and for evaluation, and
+``decode_predictions`` → ``DetectionMetrics`` / ``COCOmAP``), holds the
+on-device augmentation of a B=8 640² batch against the CPU's and its
+draws by their distributions, and runs ``Trainer.fit`` at full width on
+a parquet fixture it writes (staged through pinned memory, augmented on
+the card, checkpointed, restored into a new trainer and resumed), all
+while counting kernel launches, compares the card with the CPU in fp32
+for serving (float and int8), for one train step, for evaluation and for
+a small model's ``Trainer.fit``, and
 times the kernels, the serving variants, the train step and the eval step
 with CUDA events (every kernel and its library yardstick also by its
 device time in a profiler trace; K6 and the head's cuDNN chain level by
@@ -23,7 +28,11 @@ level; K2 and K3 on the serve pool and on a dense pool, split into their
 two kernels; K5 at the serve shape, one image, the 4K map and in fp32; K7
 over one ``quantize()``, with its bound counted from its SASS, and the
 whole ``quantize()``). With a second card it also runs K1, K5 and K6 on
-``cuda:1`` while ``cuda:0`` is current. Any failed check ends the run with
+``cuda:1`` while ``cuda:0`` is current. Phase 1b prints which optional
+host packages are there (and whether g++ finds ``jpeglib.h``); phase 8b
+reads its data through the port's ``DataLoader`` where pandas, pyarrow
+and PIL are, else from an in-memory loader, and says which. Any failed
+check ends the run with
 a non-zero exit. The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
 """
@@ -45,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from custom_yolo_tpu_torch import PRESETS, Detector
-from custom_yolo_tpu_torch.config import TrainingConfig
+from custom_yolo_tpu_torch.config import Config, TrainingConfig
+from custom_yolo_tpu_torch.data import transforms
 from custom_yolo_tpu_torch.eval import (COCOmAP, DetectionMetrics,
                                         decode_predictions)
 from custom_yolo_tpu_torch.eval.decode import decoded_to_lists
@@ -66,6 +76,9 @@ from custom_yolo_tpu_torch.train.optim import build_optimizer
 from custom_yolo_tpu_torch.train.train_state import TrainState
 from custom_yolo_tpu_torch.train.train_step import (make_eval_step,
                                                     make_train_step)
+from custom_yolo_tpu_torch.train.trainer import Trainer
+from custom_yolo_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                    host_copy)
 
 SEED = 0
 HW = 640
@@ -885,6 +898,504 @@ def nms_checks(dev) -> tuple:
     return batched, single
 
 
+# ------------------------------------------------------------- trainer phases
+# the keys of one epoch's record in the history of the JAX package's
+# Trainer with the task-aligned assigner (custom_yolo_tpu/train/trainer.py:
+# 191-197: the loss terms of train/losses.py:354-357, the train step's
+# grad_norm, eval/metrics.py's DetectionMetrics.compute, lr, epoch_time_s)
+JAX_TAL_HISTORY_KEYS = frozenset(
+    [f"train/{k}" for k in ("total_loss", "box_loss", "cls_loss",
+                            "dfl_loss", "grad_norm")]
+    + [f"val/{k}" for k in ("total_loss", "box_loss", "cls_loss", "dfl_loss",
+                            "precision", "recall", "f1_score", "mAP",
+                            "true_positives", "false_positives",
+                            "false_negatives", "total_predictions",
+                            "total_ground_truths")]
+    + ["lr", "epoch_time_s"])
+# phase 8b: batches of the trainer's full-width run, and the real images of
+# its one validation batch (the rest of it is sample_pad)
+TRAINER_BATCHES = 3
+TRAINER_VAL_REAL = 6
+# (w, h) of the fixture's JPEGs, cycled; the loader resizes them to 640²
+FIXTURE_SIZES = ((640, 480), (480, 640), (800, 600), (640, 640), (500, 375),
+                 (1024, 768))
+
+
+def environment() -> dict:
+    """Phase 1b: which optional host packages import, whether g++ runs and
+    whether it finds ``jpeglib.h`` (the port's native decoder needs both)."""
+    import importlib
+
+    found = {}
+    for name in ("yaml", "pandas", "pyarrow", "PIL", "tensorboardX",
+                 "wandb"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    gxx = shutil.which("g++")
+    found["g++"] = gxx is not None and subprocess.run(
+        [gxx, "--version"], capture_output=True).returncode == 0
+    found["jpeglib.h"] = found["g++"] and subprocess.run(
+        [gxx, "-fsyntax-only", "-x", "c++", "-"],
+        input=b"#include <cstdio>\n#include <jpeglib.h>\n",
+        capture_output=True).returncode == 0
+    return found
+
+
+def write_fixture(root: str, n_images: int, num_classes: int,
+                  seed: int) -> tuple:
+    """Seeded random JPEGs of ``FIXTURE_SIZES`` and their parquet (the
+    columns ``DetectionDataset`` reads: COCO top-left xywh boxes, category
+    ids) under ``root``. Returns (parquet path, image dir, boxes per
+    image)."""
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    image_dir = os.path.join(root, "images")
+    os.makedirs(image_dir)
+    rows, counts = [], []
+    for i in range(n_images):
+        w, h = FIXTURE_SIZES[i % len(FIXTURE_SIZES)]
+        name = f"img_{i:04d}.jpg"
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(image_dir, name), quality=90)
+        k = int(rng.randint(1, 25))
+        bw = rng.uniform(0.05, 0.5, k) * w
+        bh = rng.uniform(0.05, 0.5, k) * h
+        x = rng.uniform(0, 1, k) * (w - bw)
+        y = rng.uniform(0, 1, k) * (h - bh)
+        rows.append({"id": i + 1, "file_name": name,
+                     "bbox": np.stack([x, y, bw, bh], 1).tolist(),
+                     "category_id": rng.randint(0, num_classes, k).tolist()})
+        counts.append(k)
+    path = os.path.join(root, "fixture.parquet")
+    pd.DataFrame(rows).to_parquet(path)
+    return path, image_dir, counts
+
+
+class MemoryLoader:
+    """The data loader's contract over seeded in-memory batches, for a
+    machine without pandas, pyarrow or PIL: ``set_epoch``, ``__len__`` and
+    ``__iter__`` of host batch dicts with ``_stack``'s keys, reshuffled per
+    epoch; the last ``pad`` rows of the last batch are ``sample_pad``."""
+
+    def __init__(self, n_batches: int, batch: int, hw: int, max_gt: int,
+                 num_classes: int, seed: int, pad: int = 0):
+        rng = np.random.RandomState(seed)
+        n = n_batches * batch
+        counts = rng.randint(1, 25, n)
+        boxes = np.zeros((n, max_gt, 4), np.float32)
+        wh = rng.uniform(0.05, 0.5, (n, max_gt, 2)) * hw
+        boxes[..., 2:] = wh
+        boxes[..., :2] = wh / 2 + rng.uniform(0, 1, (n, max_gt, 2)) * (hw - wh)
+        mask = np.arange(max_gt)[None] < counts[:, None]
+        boxes[~mask] = 0.0
+        self.samples = {
+            "image": rng.randint(0, 256, (n, hw, hw, 3), dtype=np.uint8),
+            "gt_boxes": boxes,
+            "gt_labels": np.where(mask, rng.randint(0, num_classes,
+                                                    (n, max_gt)), 0
+                                  ).astype(np.int32),
+            "gt_mask": mask, "image_id": np.arange(1, n + 1, dtype=np.int64),
+            "num_gt": counts.astype(np.int32),
+            "scale": np.ones((n, 2), np.float32),
+            "offset": np.zeros((n, 2), np.float32),
+            "orig_size": np.full((n, 2), hw, np.int32),
+            "sample_pad": np.arange(n) >= n - pad}
+        self.batch, self.seed, self.epoch = batch, seed, 0
+        self.shuffle = pad == 0
+        self.gt_total = int(counts[:n - pad].sum())
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.samples["image"]) // self.batch
+
+    def __iter__(self):
+        order = np.arange(len(self.samples["image"]))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        for i in range(len(self)):
+            rows = order[i * self.batch:(i + 1) * self.batch]
+            yield {k: v[rows] for k, v in self.samples.items()}
+
+
+def trainer_loaders(env: dict, root: str, hw: int, num_classes: int,
+                    seed: int) -> tuple:
+    """(train loader, validation loader, source, ground-truth boxes of the
+    validation batch's real images): the port's ``DataLoader`` over a
+    fixture written now where pandas, pyarrow and PIL are there (PIL or the
+    native decoder decodes), else :class:`MemoryLoader`. The train loader
+    gives ``TRAINER_BATCHES`` batches of ``TRAIN_BATCH``; the validation
+    loader one batch of ``TRAINER_VAL_REAL`` images padded to
+    ``TRAIN_BATCH`` (``sample_pad``)."""
+    n_train = TRAINER_BATCHES * TRAIN_BATCH
+    max_gt = 128
+    if env["pandas"] and env["pyarrow"] and env["PIL"]:
+        from custom_yolo_tpu_torch.data.dataset import DetectionDataset
+        from custom_yolo_tpu_torch.data.loader import DataLoader
+
+        path, image_dir, counts = write_fixture(
+            root, n_train + TRAINER_VAL_REAL, num_classes, seed)
+        kw = dict(input_size=(hw, hw), max_gt=max_gt, seed=seed)
+        train_ds = DetectionDataset(path, image_dir, **kw)
+        train_ds.df = train_ds.df.iloc[:n_train].reset_index(drop=True)
+        val_ds = DetectionDataset(path, image_dir, **kw)
+        val_ds.df = val_ds.df.iloc[n_train:].reset_index(drop=True)
+        train = DataLoader(train_ds, TRAIN_BATCH, shuffle=True,
+                           drop_last=True, num_workers=4, seed=seed)
+        val = DataLoader(val_ds, TRAIN_BATCH, shuffle=False, drop_last=False,
+                         num_workers=4, seed=seed,
+                         pad_to_multiple=TRAIN_BATCH)
+        source = ("fixture: DataLoader, "
+                  f"{'native decoder' if train._native else 'PIL'}")
+        return (train, val, source,
+                int(np.minimum(counts[n_train:], max_gt).sum()))
+    train = MemoryLoader(TRAINER_BATCHES, TRAIN_BATCH, hw, max_gt,
+                         num_classes, seed)
+    val = MemoryLoader(1, TRAIN_BATCH, hw, max_gt, num_classes, seed + 1,
+                       pad=TRAIN_BATCH - TRAINER_VAL_REAL)
+    return train, val, "in-memory MemoryLoader", val.gt_total
+
+
+def same_tree(a, b) -> bool:
+    """Nested dicts, lists and tuples of tensors and plain values equal,
+    every tensor bit for bit (on the host)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def timed(fn, sink: list):
+    """``fn`` that appends its wall time, the device's work included, to
+    ``sink``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def draw_checks(gen: torch.Generator) -> dict:
+    """The port's draws from ``gen`` by their distributions, as
+    tests/test_torch_transforms.py holds them on the CPU: flip rate ½,
+    jitter factors in range, hue within ±0.1·2π, permutations valid, crop
+    offsets in [0, H] reaching both ends, Beta(32, 32) mean ½ and variance
+    1/260 over 20k draws, apply rates at their probability."""
+    n = 20000
+    flip = transforms.draw_flip(n, gen).float().mean().item()
+    jit = transforms.draw_color_jitter(n, gen)
+    factors = [(f.min().item(), f.max().item()) for f in jit[:3]]
+    hue = jit.hue.abs().max().item()
+    mos = [transforms.draw_mosaic(TRAIN_BATCH, HW, HW, 0.5, gen)
+           for _ in range(400)]
+    perms_ok = all(torch.equal(m.src_idx[:, j].sort().values,
+                               torch.arange(TRAIN_BATCH, device=gen.device))
+                   for m in mos for j in range(4))
+    oy = torch.cat([m.oy for m in mos])
+    ox = torch.cat([m.ox for m in mos])
+    apply = torch.cat([m.apply for m in mos]).float().mean().item()
+    lam = transforms.draw_beta(32.0, 32.0, n, gen).double()
+    stats = {"flip_rate": flip, "jitter_ranges": factors, "hue_max": hue,
+             "offsets": [int(oy.min()), int(oy.max()), int(ox.min()),
+                         int(ox.max())],
+             "mosaic_apply_rate": apply, "beta_mean": lam.mean().item(),
+             "beta_var": lam.var().item()}
+    check(abs(flip - 0.5) < 0.02, f"flip rate {flip}")
+    check(all(0.8 <= lo and hi < 1.2 for lo, hi in factors),
+          f"jitter factors {factors}")
+    check(hue <= 0.1 * 2 * np.pi, f"hue angle {hue}")
+    check(perms_ok, "a mosaic permutation is not one")
+    check(stats["offsets"] == [0, HW, 0, HW], f"crop offsets {stats}")
+    check(abs(apply - 0.5) < 0.03, f"mosaic apply rate {apply}")
+    check(abs(stats["beta_mean"] - 0.5) < 0.01
+          and abs(stats["beta_var"] - 1 / 260) < 0.1 / 260,
+          f"Beta(32, 32) draws: {stats}")
+    return stats
+
+
+def host_batch(n: int, hw: int, max_gt: int, num_classes: int,
+               seed: int) -> dict:
+    """A loader-shaped host batch: uint8 images, 1..max_gt centre-xywh
+    boxes per image (padded, masked) and their labels."""
+    return {k: v for k, v in MemoryLoader(1, n, hw, max_gt, num_classes,
+                                          seed).samples.items()}
+
+
+def trainer_config(preset: dict, hw: int, precision: str,
+                   checkpoint_dir: str, **training) -> Config:
+    """The config of phases 8b and 8c: ``preset``'s widths, 172 classes,
+    one device, batches of ``TRAIN_BATCH``, two epochs, staging through
+    pinned memory, augmentation on unless ``training`` says otherwise."""
+    augment = training.pop("augment", True)
+    return Config.from_dict({
+        "project": {"seed": SEED, "num_classes": NUM_CLASSES},
+        "model": {"num_classes": NUM_CLASSES, "input_size": [hw, hw],
+                  "config": {k: list(preset[k])
+                             for k in ("width", "depth", "csp")}},
+        "data": {"pin_memory": True, "augment": augment,
+                 "max_gt_boxes": 128},
+        "training": {"batch_size": TRAIN_BATCH, "epochs": 2,
+                     "log_interval": TRAINER_BATCHES,
+                     "sharding": {"mode": "single", "precision": precision},
+                     **training},
+        "checkpoint": {"checkpoint_dir": checkpoint_dir}})
+
+
+def augmentation_phase(dev, train_ms: float) -> dict:
+    """Phase 8a: ``batch_augment`` (mosaic and mixup everywhere) and
+    ``batch_preprocess`` at x/640² B=8, 128 box slots, given one set of
+    draws on the card and on the CPU; the card's own draws by their
+    distributions; staging and augmenting a batch without waiting for the
+    device; device and events times beside the train step's."""
+    host = host_batch(TRAIN_BATCH, HW, 128, NUM_CLASSES, SEED + 20)
+    keys = ("image", "gt_boxes", "gt_labels", "gt_mask")
+
+    def on(device):
+        return [torch.from_numpy(host[k]).to(device) for k in keys]
+
+    draws = transforms.draw_augment(
+        TRAIN_BATCH, HW, HW, torch.Generator().manual_seed(SEED + 21),
+        mosaic_prob=1.0, mixup_prob=1.0)
+    out = {}
+    for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        images, boxes, labels, mask = on(device)
+        d = draws.to(device)
+        out[name] = (
+            transforms.batch_augment(images, boxes, labels, mask, draws=d),
+            transforms.batch_preprocess(images, boxes, draws=d),
+            transforms.batch_preprocess(images, boxes, train=False))
+    errs = {}
+    for i, name in enumerate(("batch_augment", "batch_preprocess",
+                              "batch_preprocess eval")):
+        got = [t.cpu() for t in out["card"][i]]
+        want = out["cpu"][i]
+        check(all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+              f"{name}: boxes, labels or mask differ between card and CPU")
+        errs[name] = (got[0] - want[0]).abs().max().item()
+        check(errs[name] <= 1e-6, f"{name}: images differ by {errs[name]} "
+              f"between card and CPU (limit 1e-6)")
+    unit = transforms.to_unit(on(dev)[0]).cpu()
+    check(torch.equal(unit, torch.from_numpy(
+        host["image"].astype(np.float32) / np.float32(255.0))),
+        "÷255 on the card is not the correctly rounded quotient")
+    n_valid = int(out["card"][0][3].sum())
+    stats = draw_checks(torch.Generator(device=dev).manual_seed(SEED + 22))
+
+    # staging and augmenting wait for nothing on the device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        transforms.make_device_batch(host, gen, dev, train=True,
+                                     mosaic_prob=0.5, mixup_prob=0.5,
+                                     pin_memory=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    images, boxes, labels, mask = on(dev)
+    calls = {
+        "batch_augment": lambda: transforms.batch_augment(
+            images, boxes, labels, mask, gen, mosaic_prob=1.0,
+            mixup_prob=1.0),
+        "batch_preprocess": lambda: transforms.batch_preprocess(
+            images, boxes, gen),
+        "make_device_batch": lambda: transforms.make_device_batch(
+            host, gen, dev, train=True, mosaic_prob=0.5, mixup_prob=0.5,
+            pin_memory=True)}
+    times = {name: {"device_ms": device_ms(fn), "events_ms": time_ms(fn)}
+             for name, fn in calls.items()}
+    log(f"phase 8a augmentation x/640² B={TRAIN_BATCH}, 128 box slots: "
+        f"card vs CPU on one set of draws, boxes, labels and mask equal, "
+        f"images max abs err {errs} (limit 1e-6), ÷255 exact; "
+        f"{n_valid} boxes valid after mosaic and mixup; the card's own "
+        f"draws {stats}; make_device_batch waits for nothing; times "
+        f"{times}; train step {train_ms} ms (phase 7) | {card_line()}")
+    return {"max_abs_err": errs, "draws": stats, "times": times,
+            "train_step_ms": train_ms}
+
+
+def trainer_phase(dev, env: dict, preset: dict) -> tuple:
+    """Phase 8b: ``Trainer.fit`` at full width (``preset``, 172 classes,
+    640², bf16, B=8, TAL, EMA, warm-up, mosaic 0.5, mixup 0.5, close_mosaic
+    1, pinned staging) for two epochs of ``TRAINER_BATCHES`` train batches
+    and one validation batch, checkpointing each epoch; then a new Trainer
+    on other weights restores epoch 0 and resumes for one. Returns (launch
+    counts of the whole phase, numbers)."""
+    with tempfile.TemporaryDirectory() as root:
+        train_l, val_l, source, val_gt = trainer_loaders(
+            env, os.path.join(root, "data"), HW, NUM_CLASSES, SEED + 30)
+        ckdir = os.path.join(root, "checkpoints")
+        cfg = trainer_config(preset, HW, "bfloat16", ckdir, assigner="tal",
+                             ema_decay=0.9999, warmup_steps=3, mosaic=0.5,
+                             mixup=0.5, close_mosaic=1)
+        kept = {}
+
+        class KeepingManager(CheckpointManager):
+            """Keeps a host copy of every state it saves."""
+
+            def save(self, epoch, state, metrics=None):
+                kept[epoch] = host_copy(state.state_dict())
+                super().save(epoch, state, metrics)
+
+        def new_trainer(seed, manager):
+            return Trainer(cfg, create_train_model(
+                preset["width"], preset["depth"], preset["csp"],
+                NUM_CLASSES, precision="bfloat16", device=dev, seed=seed),
+                checkpoint_manager=manager)
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = new_trainer(SEED + 31, KeepingManager(ckdir))
+        train_s, val_s = [], []
+        trainer._train_epoch = timed(trainer._train_epoch, train_s)
+        trainer._validate = timed(trainer._validate, val_s)
+        history = trainer.fit(train_l, val_l)["history"]
+        check(len(history) == 2 and trainer.state.epoch == 2
+              and trainer.state.step == 2 * TRAINER_BATCHES,
+              f"fit ran {len(history)} epochs, {trainer.state.step} steps")
+        resumed = new_trainer(SEED + 32, CheckpointManager(ckdir))
+        resumed.load_state(resumed.ckpt.restore(resumed.state, epoch=0))
+        check(same_tree(host_copy(resumed.state.state_dict()), kept[0]),
+              "the state restored from epoch 0 differs from the saved one")
+        again = resumed.fit(train_l, val_l)["history"]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        epochs_run = len(history) + len(again)
+        want = counts(attention=2 * (TRAINER_BATCHES + 1) * epochs_run,
+                      attention_bwd=2 * TRAINER_BATCHES * epochs_run,
+                      sppf=epochs_run)
+        check(launches == want, f"the trainer launched {launches}, want "
+              f"{want}: K1 twice a forward, K4 twice a train step, K5 once "
+              f"a validation forward")
+        for rec in history + again:
+            check(set(rec) == JAX_TAL_HISTORY_KEYS,
+                  f"history keys {sorted(rec)} are not the JAX trainer's")
+            check(all(np.isfinite(v) for v in rec.values()),
+                  f"non-finite value in the history: {rec}")
+            # every ground-truth box is matched or missed, predictions or
+            # none (total_ground_truths counts only where there are some)
+            seen = rec["val/true_positives"] + rec["val/false_negatives"]
+            check(seen == val_gt,
+                  f"validation counted {seen} ground-truth boxes, the "
+                  f"{TRAINER_VAL_REAL} real images hold {val_gt}: sample_pad "
+                  f"rows were not skipped")
+        prof = profile_call(lambda: resumed._train_epoch(train_l, 1), reps=1)
+    n_img = TRAINER_BATCHES * TRAIN_BATCH
+    numbers = {
+        "source": source,
+        "train_loss": [r["train/total_loss"] for r in history],
+        "val_loss": [r["val/total_loss"] for r in history],
+        "resumed_epoch1": {"train_loss": again[0]["train/total_loss"],
+                           "val_loss": again[0]["val/total_loss"]},
+        "lr": [r["lr"] for r in history + again],
+        "train_epoch_s": train_s, "train_img_per_s": [n_img / s
+                                                      for s in train_s],
+        "validate_s": val_s, "peak_memory_gib": peak_gb,
+        "epoch_idle_share": prof["idle_share"],
+        "epoch_device_busy_ms": prof["device_busy_ms"],
+        "epoch_window_ms": prof["window_ms"],
+        "epoch_launches": prof["kernels_per_call"]}
+    log(f"phase 8b Trainer.fit x/640² bf16 B={TRAIN_BATCH}, TAL, EMA, "
+        f"warm-up, mosaic/mixup 0.5, close_mosaic 1, pinned staging; data: "
+        f"{source}; {json.dumps(numbers)}; restored epoch 0 bit for bit; "
+        f"launches {launches} | {card_line()}")
+    return launches, numbers
+
+
+def mid_training(cfg: Config, model, seed: int) -> Trainer:
+    """A Trainer whose state looks some way into training, the same on
+    every device: BatchNorm scales, biases and statistics off their initial
+    values, AdamW moments filled and 50 steps counted. From fresh moments
+    AdamW's first updates are ``±lr``, which turns the rounding noise of a
+    gradient that is zero in exact arithmetic (a shift in front of a
+    training-mode BatchNorm) into a full step of either sign on each device
+    (the start of tests/test_torch_train.py's whole-step comparisons)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(shape, low=None, high=None):
+        if low is None:
+            return 0.1 * torch.randn(shape, generator=gen)
+        return torch.rand(shape, generator=gen) * (high - low) + low
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                for t, bounds in ((mod.weight, (0.5, 1.5)), (mod.bias, ()),
+                                  (mod.running_mean, ()),
+                                  (mod.running_var, (0.5, 1.5))):
+                    t.copy_(draw(t.shape, *bounds))
+    trainer = Trainer(cfg, model)
+    for param in model.parameters():
+        trainer.optimizer.state[param] = {
+            "step": torch.tensor(50.0),
+            "exp_avg": (1e-2 * draw(param.shape)).to(param.device),
+            "exp_avg_sq": draw(param.shape, 1e-5, 1e-3).to(param.device)}
+    trainer.state.step = 50
+    return trainer
+
+
+def trainer_card_vs_cpu(env: dict) -> dict:
+    """Phase 8c: the small model's fp32 ``Trainer.fit`` (two epochs, no
+    augmentation, nearest assigner, EMA and warm-up, TF32 off) on the card
+    and on the CPU over the same batches, from one mid-training state
+    (:func:`mid_training`): per-epoch losses within 3e-4 relative, the same
+    ``lr`` and ``best_epoch``."""
+    results = {}
+    with tempfile.TemporaryDirectory() as root:
+        train_l, val_l, source, _ = trainer_loaders(
+            env, os.path.join(root, "data"), SMALL["hw"], NUM_CLASSES,
+            SEED + 40)
+        for device in ("cpu", "cuda"):
+            cfg = trainer_config(SMALL, SMALL["hw"], "float32",
+                                 os.path.join(root, device), augment=False,
+                                 ema_decay=0.99, warmup_steps=60,
+                                 learning_rate_patience=0)
+            model = create_train_model(
+                SMALL["width"], SMALL["depth"], SMALL["csp"], NUM_CLASSES,
+                precision="float32", device=device, seed=SEED + 41)
+            results[device] = mid_training(cfg, model, SEED + 42).fit(
+                train_l, val_l)
+    cpu, card = results["cpu"], results["cuda"]
+    check(len(cpu["history"]) == len(card["history"]) == 2
+          and cpu["best_epoch"] == card["best_epoch"],
+          f"best epoch {card['best_epoch']} on the card, {cpu['best_epoch']}"
+          f" on the CPU")
+    errs = []
+    for rec_c, rec_g in zip(cpu["history"], card["history"]):
+        check(rec_c["lr"] == rec_g["lr"],
+              f"lr {rec_g['lr']} on the card, {rec_c['lr']} on the CPU")
+        for key in ("train/total_loss", "val/total_loss"):
+            err = abs(rec_g[key] - rec_c[key]) / abs(rec_c[key])
+            errs.append(err)
+            check(err <= 3e-4, f"{key}: card {rec_g[key]} vs CPU "
+                  f"{rec_c[key]} (limit 3e-4 relative)")
+    log(f"phase 8c fp32 Trainer.fit card vs CPU (small model, "
+        f"{SMALL['hw']}², B={TRAIN_BATCH}, 2 epochs, no augmentation, TF32 "
+        f"off; data: {source}): losses card "
+        f"{[(r['train/total_loss'], r['val/total_loss']) for r in card['history']]}"
+        f" vs CPU "
+        f"{[(r['train/total_loss'], r['val/total_loss']) for r in cpu['history']]}"
+        f", largest relative gap {max(errs)} (limit 3e-4); lr "
+        f"{[r['lr'] for r in card['history']]}; best epoch "
+        f"{card['best_epoch']} on both")
+    return {"max_rel_err": max(errs), "best_epoch": card["best_epoch"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -900,6 +1411,8 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1 device: {kind} | {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    env = environment()
+    log(f"phase 1b environment: {json.dumps(env)}")
 
     # ---------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -2211,10 +2724,17 @@ def main() -> None:
         f"launches)")
     prof = profile_call(eval_and_decode, reps=2)
     log(json.dumps({"card": card, "profile_eval_batch": train_n, **prof}))
+    del model, optimizer, state, tal_step, nearest_step, eval_step, tbatch
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 8. the trainer path
+    augmentation_phase(dev, train_ms)
+    trainer_launches, _ = trainer_phase(dev, env, p)
+    trainer_card_vs_cpu(env)
 
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
-             "int8": int8_launches}
+             "int8": int8_launches, "trainer": trainer_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):

@@ -10,8 +10,12 @@ tower of the head, seeded stochastic rounding to int8) are CUDA C++ for
 tensors on the CPU take. ``ops/quant.py`` holds int8 serving (per-channel
 weights, dynamic or calibrated activation scales). ``train/``
 holds the assigners, the detection loss, AdamW with the plateau schedule,
-the train state and the train and eval steps; ``eval/`` the prediction
-decode and the greedy and COCO-protocol metrics.
+the train state, the train and eval steps and the ``Trainer``; ``data/``
+the on-device augmentation, the parquet dataset and the threaded loader
+(``runtime/``: its native JPEG decoder); ``eval/`` the prediction decode
+and the greedy and COCO-protocol metrics; ``config.py`` the typed YAML
+configuration; ``utils/`` checkpoints, logging and the carrying of JAX
+weights.
 
 Public layouts follow the JAX package: images NHWC, predictions
 anchor-major ``(N, M, 4·reg_max + nc)``. Entry points run on ``cuda``

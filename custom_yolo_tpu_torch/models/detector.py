@@ -17,12 +17,14 @@ the train step.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from custom_yolo_tpu_torch.core.dtypes import DTypePolicy, resolve_policy
 from custom_yolo_tpu_torch.models.backbone import (BACKBONE_STAGES,
@@ -31,7 +33,7 @@ from custom_yolo_tpu_torch.models.backbone import (BACKBONE_STAGES,
 from custom_yolo_tpu_torch.models.head import CLS_BIAS, Head
 from custom_yolo_tpu_torch.models.neck import Neck
 from custom_yolo_tpu_torch.nn.blocks import (BN_EPS, MERGE_MIN_HALF,
-                                             _QuantConv)
+                                             _QuantConv, frozen_statistics)
 from custom_yolo_tpu_torch.ops.boxes import dist2bbox
 from custom_yolo_tpu_torch.ops.dfl import dfl_decode
 from custom_yolo_tpu_torch.ops.nms import NMSResult, batched_nms, nms_to_lists
@@ -54,15 +56,21 @@ class YoloModel(nn.Module):
     weights come from :func:`convert_stem_variables` and
     :func:`merge_c3k_params`. ``quantized`` (fused only) makes every ConvBN
     int8 except the backbone stages in ``quant_skip``; the weights come
-    from :func:`ops.quant.quantize_fused_params` with the same skip."""
+    from :func:`ops.quant.quantize_fused_params` with the same skip.
+    ``remat`` recomputes the backbone's and the neck's activations in the
+    backward pass of a training forward (``torch.utils.checkpoint``), as
+    the JAX model's ``nn.remat`` does; the recompute leaves the BatchNorm
+    running statistics alone."""
 
     def __init__(self, width: Sequence[int], depth: Sequence[int],
                  csp: Sequence[bool], num_classes: int, reg_max: int = 16,
                  policy: DTypePolicy = DTypePolicy(), fused: bool = False,
                  s2d_stem: bool = False, merged: bool = False,
-                 quantized: bool = False, quant_skip: Sequence[str] = ()):
+                 quantized: bool = False, quant_skip: Sequence[str] = (),
+                 remat: bool = False):
         super().__init__()
         self.policy = policy
+        self.remat = remat
         self.net = Backbone(width, depth, csp, fused=fused,
                             s2d_stem=s2d_stem, merged=merged,
                             quantized=quantized, quant_skip=quant_skip)
@@ -73,7 +81,18 @@ class YoloModel(nn.Module):
 
     def forward(self, x: torch.Tensor):
         x = x.to(self.policy.compute_dtype).permute(0, 3, 1, 2)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return self.head(self._recomputed(
+                self.fpn, self._recomputed(self.net, x)))
         return self.head(self.fpn(self.net(x)))
+
+    @staticmethod
+    def _recomputed(module: nn.Module, x):
+        """``module(x)`` keeping only its input for the backward pass."""
+        return checkpoint(module, x, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              frozen_statistics(module)))
 
 
 def init_weights(model: YoloModel, seed: int) -> None:
@@ -101,15 +120,15 @@ def create_train_model(width: Sequence[int], depth: Sequence[int],
                        reg_max: int = 16, precision: str = "bfloat16",
                        device: str | torch.device = "cuda",
                        seed: int = 0,
-                       variables: Optional[Mapping[str, Any]] = None
-                       ) -> YoloModel:
+                       variables: Optional[Mapping[str, Any]] = None,
+                       remat: bool = False) -> YoloModel:
     """The unfused model for the train step: in training mode, on
     ``device`` (``cuda`` unless the caller says otherwise; no fallback),
     ``channels_last``. Weights from ``variables`` (a JAX
     ``{"params", "batch_stats"}`` tree as numpy) when given, else seeded
-    random ones."""
+    random ones. ``remat``: see :class:`YoloModel`."""
     model = YoloModel(width, depth, csp, num_classes, reg_max,
-                      resolve_policy(precision), fused=False)
+                      resolve_policy(precision), fused=False, remat=remat)
     if variables is not None:
         model.load_state_dict(from_jax_variables(variables, model),
                               strict=True)
@@ -259,13 +278,19 @@ def normalize_uint8(images: torch.Tensor, mean: torch.Tensor,
     return (x / x.new_full((), 255.0) - mean) / std
 
 
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """HWC float tensor → (h, w, C): half-pixel bilinear with an
+    antialiasing triangle filter when shrinking (``jax.image.resize(...,
+    "bilinear")``)."""
+    y = F.interpolate(x.permute(2, 0, 1)[None], size=(h, w),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y[0].permute(1, 2, 0)
+
+
 def _resize_bilinear(arr: np.ndarray, h: int, w: int) -> np.ndarray:
-    """HWC float32 → (h, w, C): half-pixel bilinear with an antialiasing
-    triangle filter when shrinking (``jax.image.resize(..., "bilinear")``)."""
-    x = torch.from_numpy(np.ascontiguousarray(arr)).permute(2, 0, 1)[None]
-    y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
-                      antialias=True)
-    return y[0].permute(1, 2, 0).numpy()
+    """:func:`resize_bilinear` of a float32 numpy array."""
+    return resize_bilinear(torch.from_numpy(np.ascontiguousarray(arr)), h,
+                           w).numpy()
 
 
 def decode_raw_predictions(preds: torch.Tensor, anchors: torch.Tensor,

@@ -11,7 +11,8 @@ activation dtype where they are used.
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import Iterator, List
 
 import torch
 import torch.nn.functional as F
@@ -106,6 +107,9 @@ class ConvBN(nn.Module):
         self.bn = None if fused else nn.BatchNorm2d(
             c_out, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
+        # off while a rematerialised forward is recomputed in the backward
+        # pass (frozen_statistics): the forward already took this batch
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = (self.conv(x) if isinstance(self.conv, _QuantConv)
@@ -119,11 +123,12 @@ class ConvBN(nn.Module):
                 # (F.batch_norm would store the unbiased one, n/(n−1)
                 # larger). One pass; flax's E[x²] − E[x]² is the same
                 # number up to its cancellation error.
-                with torch.no_grad():
-                    var, mean = torch.var_mean(yf, dim=(0, 2, 3),
-                                               unbiased=False)
-                    bn.running_mean.lerp_(mean, bn.momentum)
-                    bn.running_var.lerp_(var, bn.momentum)
+                if self.update_stats:
+                    with torch.no_grad():
+                        var, mean = torch.var_mean(yf, dim=(0, 2, 3),
+                                                   unbiased=False)
+                        bn.running_mean.lerp_(mean, bn.momentum)
+                        bn.running_var.lerp_(var, bn.momentum)
                 y = F.batch_norm(yf, None, None, bn.weight, bn.bias, True,
                                  0.0, bn.eps).to(x.dtype)
             else:
@@ -131,6 +136,21 @@ class ConvBN(nn.Module):
                                  bn.weight, bn.bias, False, 0.0,
                                  bn.eps).to(x.dtype)
         return F.silu(y) if self.act else y
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module) -> Iterator[None]:
+    """Every ConvBN inside ``module`` leaves its running statistics alone
+    for the duration: the context of a rematerialised forward's recompute,
+    which sees the batch a second time (flax updates them once)."""
+    convbns = [m for m in module.modules() if isinstance(m, ConvBN)]
+    for m in convbns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in convbns:
+            m.update_stats = True
 
 
 class Residual(nn.Module):

@@ -12,7 +12,7 @@ one owns mutable objects and the train step updates them in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -66,3 +66,33 @@ class TrainState:
         """What validation and serving read: the EMA when it is tracked
         (parameters and statistics), else the live values."""
         return self.ema if self.ema is not None else self.variables
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resume needs, as tensors and plain values (the
+        tensors are the live ones, not copies): the model (parameters and
+        buffers), the optimizer (moments, step counts, learning rate),
+        step, epoch, plateau, EMA and the generator's state."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "epoch": self.epoch,
+                "plateau": self.plateau._asdict(), "ema": self.ema,
+                "rng": self.rng.get_state()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load :meth:`state_dict`'s output into this state's own objects,
+        on their devices."""
+        if (state["ema"] is None) != (self.ema is None):
+            raise ValueError("the checkpoint and this state disagree on "
+                             "whether an EMA is kept")
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.epoch = int(state["epoch"])
+        self.plateau = PlateauState(**state["plateau"])
+        if self.ema is not None:
+            if set(state["ema"]) != set(self.ema):
+                raise ValueError("the checkpoint's EMA does not match the "
+                                 "model")
+            for key, value in state["ema"].items():
+                self.ema[key].copy_(value)
+        self.rng.set_state(state["rng"])

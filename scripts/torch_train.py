@@ -1,0 +1,186 @@
+#!/usr/bin/env python
+"""Training entry point of the PyTorch/CUDA port (counterpart of
+``scripts/train.py``).
+
+The same command line, on one device: ``--mode single`` only for now
+(data and fully sharded parallel training are ROADMAP.md A3), and
+``--device cuda|cpu`` (``cuda`` by default, with no fallback to the CPU).
+A checkpoint directory's ``model_config.json`` fixes the architecture and
+precision on resume; with ``checkpoint.resume_training`` set, training
+resumes from the latest checkpoint it finds.
+
+Usage:
+  python scripts/torch_train.py --mode single --precision bfloat16 \\
+      --batch_size 8
+  python scripts/torch_train.py --mode single --load_from_checkpoint <dir>
+"""
+
+import argparse
+import os
+import sys
+import time
+import traceback
+
+# the repository root in place of this script's directory, whose
+# profile.py would shadow the standard library's (torch imports it)
+sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="detection training (PyTorch)")
+    p.add_argument("--config", default="configs/config.yaml")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--mode", required=True, choices=["single"],
+                   help="parallelism mode (single device only)")
+    p.add_argument("--precision", default=None,
+                   choices=["bfloat16", "float16", "float32"])
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--prefetch_factor", type=int, default=None)
+    p.add_argument("--dataset_percent", type=float, default=1.0)
+    p.add_argument("--load_from_checkpoint", default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None,
+                   help="override project.seed (init + data order + augment)")
+    p.add_argument("--save_interval", type=int, default=None,
+                   help="override checkpoint.save_interval")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="override checkpoint.checkpoint_dir")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+
+    from custom_yolo_tpu_torch.config import Config
+    from custom_yolo_tpu_torch.data.dataset import DetectionDataset
+    from custom_yolo_tpu_torch.data.loader import DataLoader
+    from custom_yolo_tpu_torch.models.detector import create_train_model
+    from custom_yolo_tpu_torch.ops.cuda import build
+    from custom_yolo_tpu_torch.train.trainer import Trainer
+    from custom_yolo_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                        load_sidecar,
+                                                        save_sidecar)
+    from custom_yolo_tpu_torch.utils.common import get_num_workers
+    from custom_yolo_tpu_torch.utils.logging import (MetricsLogger,
+                                                     setup_console_logging)
+    from custom_yolo_tpu_torch.utils.summary import count_params, summarize
+
+    cfg = Config.from_yaml(args.config)
+    cfg.training.sharding.mode = args.mode
+    if args.precision:
+        cfg.training.sharding.precision = args.precision
+    if args.batch_size:
+        cfg.training.batch_size = args.batch_size
+    if args.prefetch_factor:
+        cfg.data.prefetch_factor = args.prefetch_factor
+    if args.epochs:
+        cfg.training.epochs = args.epochs
+    if args.seed is not None:
+        cfg.project.seed = args.seed
+    if args.save_interval is not None:
+        cfg.checkpoint.save_interval = args.save_interval
+    if args.checkpoint_dir is not None:
+        cfg.checkpoint.checkpoint_dir = args.checkpoint_dir
+
+    # a resumed run keeps the checkpoint's architecture and precision
+    ckpt_dir = cfg.checkpoint.checkpoint_dir
+    if args.load_from_checkpoint:
+        ckpt_dir = args.load_from_checkpoint
+        sidecar = load_sidecar(ckpt_dir)
+        if sidecar:
+            cfg.model.width = sidecar["width"]
+            cfg.model.depth = sidecar["depth"]
+            cfg.model.csp = sidecar["csp"]
+            cfg.model.num_classes = sidecar["num_classes"]
+            cfg.training.sharding.precision = sidecar.get(
+                "precision", cfg.training.sharding.precision)
+
+    logger = setup_console_logging(cfg.logging.log_level,
+                                   cfg.project.log_dir,
+                                   cfg.logging.file_log)
+    device = torch.device(args.device)
+    logger.info(f"device: {device}"
+                + (f" ({torch.cuda.get_device_name(device)})"
+                   if device.type == "cuda" else ""))
+    if device.type == "cuda":
+        # every kernel library at once (one nvcc each, in parallel), rather
+        # than one by one at its first launch inside the first epoch
+        t0 = time.perf_counter()
+        build.build()
+        logger.info(f"CUDA kernels built in {time.perf_counter() - t0:.1f} s")
+    logger.info(f"mode={args.mode} precision="
+                f"{cfg.training.sharding.precision} "
+                f"batch={cfg.training.batch_size}")
+
+    model = create_train_model(
+        cfg.model.width, cfg.model.depth, cfg.model.csp,
+        cfg.model.num_classes, reg_max=cfg.model.reg_max,
+        precision=cfg.training.sharding.precision, device=device,
+        seed=cfg.project.seed, remat=cfg.training.remat)
+    logger.info(f"model params: {count_params(model):,}")
+    logger.info("\n" + summarize(model))
+
+    workers = get_num_workers()
+    kw = dict(input_size=tuple(cfg.model.input_size),
+              is_test=cfg.training.is_test, percent=args.dataset_percent,
+              max_gt=cfg.data.max_gt_boxes, seed=cfg.project.seed,
+              letterbox=cfg.data.letterbox)
+    train_ds = DetectionDataset(
+        os.path.join(cfg.data.processed_dir, cfg.data.train_parquet),
+        cfg.data.train_images, **kw)
+    val_ds = DetectionDataset(
+        os.path.join(cfg.data.processed_dir, cfg.data.val_parquet),
+        cfg.data.val_images, **kw)
+    loader_kw = dict(num_workers=workers,
+                     prefetch_factor=cfg.data.prefetch_factor,
+                     seed=cfg.project.seed)
+    train_loader = DataLoader(train_ds, cfg.training.batch_size,
+                              shuffle=True, drop_last=True, **loader_kw)
+    val_loader = DataLoader(val_ds, cfg.training.batch_size, shuffle=False,
+                            drop_last=False, **loader_kw)
+    logger.info(f"train: {len(train_ds)} images, val: {len(val_ds)} images")
+    if len(train_loader) == 0:
+        raise SystemExit(
+            f"train dataset ({len(train_ds)} images) yields zero batches at "
+            f"batch {cfg.training.batch_size}: reduce --batch_size or add "
+            f"data")
+
+    save_sidecar(ckpt_dir, {
+        "width": list(cfg.model.width), "depth": list(cfg.model.depth),
+        "csp": list(cfg.model.csp), "num_classes": cfg.model.num_classes,
+        "mode": args.mode, "precision": cfg.training.sharding.precision})
+    ckpt = CheckpointManager(ckpt_dir, max_to_keep=cfg.checkpoint.max_to_keep)
+    metrics_logger = MetricsLogger(
+        cfg.wandb, log_dir=cfg.project.log_dir,
+        run_name=f"{args.device}_{args.mode}_"
+                 f"{cfg.training.sharding.precision}",
+        config_dict=cfg.to_dict())
+    metrics_logger.log_summary(
+        f"params: {count_params(model):,}\n{summarize(model)}")
+
+    trainer = Trainer(cfg, model, logger=logger,
+                      metrics_logger=metrics_logger, checkpoint_manager=ckpt)
+    # an explicit --load_from_checkpoint, or checkpoint.resume_training
+    # with a checkpoint present
+    auto_resume = (cfg.checkpoint.resume_training
+                   and ckpt.latest_epoch() is not None)
+    if args.load_from_checkpoint or auto_resume:
+        trainer.load_state(ckpt.restore(trainer.state))
+        logger.info(f"resumed from epoch {trainer.state.epoch}")
+
+    try:
+        result = trainer.fit(train_loader, val_loader)
+        logger.info(f"done; best val loss {result['best_val_loss']:.4f}")
+    except Exception:
+        traceback.print_exc()
+        raise
+    finally:
+        metrics_logger.close()
+        ckpt.close()
+    return result
+
+
+if __name__ == "__main__":
+    main()
