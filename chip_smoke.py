@@ -31,8 +31,16 @@ whole ``quantize()``). With a second card it also runs K1, K5 and K6 on
 ``cuda:1`` while ``cuda:0`` is current. Phase 1b prints which optional
 host packages are there (and whether g++ finds ``jpeglib.h``); phase 8b
 reads its data through the port's ``DataLoader`` where pandas, pyarrow
-and PIL are, else from an in-memory loader, and says which. Any failed
-check ends the run with
+and PIL are, else from an in-memory loader, and says which. Phase 9 runs
+the deployment path through the command-line entry points, each a child
+process on the card: the ETL (``scripts/torch_make_fixture.py``,
+``scripts/torch_data_preprocess.py``), one training epoch
+(``scripts/torch_train.py``), ``scripts/torch_evaluate.py`` on its
+checkpoint (plain, with NMS and COCO mAP, static int8; a small fp32
+model's metrics card against CPU), ``Detector.save_weights`` /
+``load_weights`` bit for bit, and ``scripts/torch_serve.py`` against
+``Detector.serve``; the CLIs' launch counts make the ``cli`` path. Any
+failed check ends the run with
 a non-zero exit. The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
 """
@@ -79,6 +87,7 @@ from custom_yolo_tpu_torch.train.train_step import (make_eval_step,
 from custom_yolo_tpu_torch.train.trainer import Trainer
 from custom_yolo_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                     host_copy)
+from custom_yolo_tpu_torch.utils.profiling import kernel_wrappers
 
 SEED = 0
 HW = 640
@@ -151,16 +160,8 @@ KERNEL_CATEGORIES = (
 
 
 # the wrappers that count their kernel launches, by the name used in the
-# launch tables below
-COUNTED = {
-    "attention": attention.psa_attention,
-    "attention_bwd": attention.psa_attention_bwd,
-    "nms_batched": nms_kernel.nms_keep_batched,
-    "nms_single": nms_kernel.nms_keep_single,
-    "sppf": sppf_kernel.sppf_pyramid,
-    "cls_tower": head_kernel.cls_tower,
-    "stochastic_round": quant_kernel.stochastic_round_many,
-}
+# launch tables below and in the CLIs' closing launch counts
+COUNTED = kernel_wrappers()
 
 
 def reset_counts() -> None:
@@ -922,13 +923,15 @@ FIXTURE_SIZES = ((640, 480), (480, 640), (800, 600), (640, 640), (500, 375),
 
 
 def environment() -> dict:
-    """Phase 1b: which optional host packages import, whether g++ runs and
-    whether it finds ``jpeglib.h`` (the port's native decoder needs both)."""
+    """Phase 1b: which optional host packages import (``cv2`` turns RLE
+    segmentations into polygons in the ETL, ``matplotlib`` draws the
+    plots of ``utils.visualization``), whether g++ runs and whether it
+    finds ``jpeglib.h`` (the port's native decoder needs both)."""
     import importlib
 
     found = {}
     for name in ("yaml", "pandas", "pyarrow", "PIL", "tensorboardX",
-                 "wandb"):
+                 "wandb", "cv2", "matplotlib"):
         try:
             importlib.import_module(name)
             found[name] = True
@@ -1394,6 +1397,480 @@ def trainer_card_vs_cpu(env: dict) -> dict:
         f"{[r['lr'] for r in card['history']]}; best epoch "
         f"{card['best_epoch']} on both")
     return {"max_rel_err": max(errs), "best_epoch": card["best_epoch"]}
+
+
+# ------------------------------------------------------------ the CLI phase
+REPO = os.path.dirname(os.path.abspath(__file__))
+# phase 9: the fixture of torch_make_fixture.py (24 train and 8 validation
+# JPEGs, sides 320-639, 8 classes), the small model's classes for the
+# card-against-CPU evaluation, the copies of the fixture's 32 images and a
+# PNG that the serve CLI reads, and the lines the CLIs print
+CLI_TRAIN_IMAGES = 24
+CLI_CLASSES = 8
+CLI_SMALL = dict(SMALL, num_classes=CLI_CLASSES)
+SERVE_REPEATS = 8
+LAUNCH_LINE = "[INFO] kernel launches: "
+RESULTS_LINE = "[INFO] results: "
+
+
+def run_cli(script: str, args, sink=None, env=None,
+            timeout: int = 600) -> tuple:
+    """``python3 scripts/{script} args`` in a child process; a non-zero
+    exit fails the run. The CLI's closing launch counts are added to
+    ``sink`` when it is given. Returns (standard output, seconds)."""
+    cmd = [sys.executable, os.path.join(REPO, "scripts", script),
+           *map(str, args)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                       env=env, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"{' '.join(cmd)} exited with {r.returncode}:"
+          f"\n{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    if sink is not None:
+        lines = [line[len(LAUNCH_LINE):] for line in r.stdout.splitlines()
+                 if line.startswith(LAUNCH_LINE)]
+        check(len(lines) == 1, f"{script} printed no launch counts")
+        for name, n in json.loads(lines[0]).items():
+            sink[name] += n
+    return r.stdout, seconds
+
+
+def printed_results(out: str) -> dict:
+    """The unrounded results that ``torch_evaluate.py`` prints on its
+    ``[INFO] results:`` line."""
+    lines = [line[len(RESULTS_LINE):] for line in out.splitlines()
+             if line.startswith(RESULTS_LINE)]
+    check(len(lines) == 1, f"torch_evaluate.py printed no results: "
+          f"{out[-2000:]}")
+    return json.loads(lines[0])
+
+
+def rle_string(counts) -> str:
+    """COCO's compressed RLE string of run lengths (pycocotools
+    ``rleToString``: 6-bit chunks offset by 48, counts from the fourth on
+    as deltas against the one two before)."""
+    out = []
+    for i, x in enumerate(counts):
+        x = x - counts[i - 2] if i > 2 else x
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def etl_segmentations(env: dict, root: str) -> str:
+    """Phase 9a: polygon and crowd rows through ``DataPreprocess``, and RLE
+    rows (uncompressed and compressed) where ``cv2`` imports: the polygon
+    kept as given, the crowd row's segmentation empty, each RLE rectangle
+    a four-corner contour. Returns what was checked."""
+    import pandas as pd
+
+    from custom_yolo_tpu_torch.data.preprocess import DataPreprocess
+
+    mask = np.zeros((40, 50), np.uint8)
+    mask[5:20, 10:30] = 1
+    flat = mask.T.ravel()
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    counts = np.diff(np.concatenate([[0], edges, [flat.size]])).tolist()
+    polygon = [[10.0, 5.0, 29.0, 5.0, 29.0, 19.0]]
+    segs = [(polygon, 0), ({"counts": rle_string(counts),
+                            "size": [40, 50]}, 1)]
+    if env["cv2"]:
+        segs += [({"counts": counts, "size": [40, 50]}, 0),
+                 ({"counts": rle_string(counts), "size": [40, 50]}, 0)]
+    doc = {"images": [{"id": 1, "file_name": "a.jpg", "height": 40,
+                       "width": 50}],
+           "annotations": [{"id": i + 1, "image_id": 1, "category_id": 3,
+                            "bbox": [10.0, 5.0, 20.0, 15.0], "area": 300.0,
+                            "iscrowd": crowd, "segmentation": seg}
+                           for i, (seg, crowd) in enumerate(segs)],
+           "categories": [{"id": 3, "name": "c", "supercategory": "s"}]}
+    ann = os.path.join(root, "rle")
+    os.makedirs(ann)
+    with open(os.path.join(ann, "instances_val2017.json"), "w") as f:
+        json.dump(doc, f)
+    DataPreprocess.create_parquet_data(
+        annotations_dir=ann, output_dir=ann, output_folder="val",
+        file_names=["instances_val2017.json"],
+        keys=["images", "annotations", "categories"],
+        columns=[["id", "file_name", "height", "width"],
+                 ["id", "image_id", "category_id", "bbox", "area",
+                  "iscrowd", "segmentation"], ["id", "name", "supercategory"]],
+        chunk_sizes=[100, 100, 100], is_test=False)
+    row = pd.read_parquet(os.path.join(ann, "val")).iloc[0]
+    got = [[list(map(float, p)) for p in seg] for seg in row["segmentation"]]
+    check(got[0] == polygon and got[1] == [],
+          f"ETL segmentations {got[:2]}: the polygon or the crowd row "
+          f"changed")
+    corners = [[10.0, 5.0, 10.0, 19.0, 29.0, 19.0, 29.0, 5.0]]
+    check(all(seg == corners for seg in got[2:]),
+          f"ETL: RLE rectangles became {got[2:]}, not {corners}")
+    return ("polygon, crowd and RLE (uncompressed, compressed) rows"
+            if env["cv2"] else "no cv2 here: polygon and crowd rows only, "
+            "RLE rows need cv2")
+
+
+def cli_serve_direct(det, paths, hw: int, batch: int, conf: float) -> list:
+    """What ``scripts/torch_serve.py`` writes, computed here: its decoder
+    choice (native for all-JPEG batches where it builds, else PIL), its
+    padded batches and ``Detector.serve`` on them, boxes in original
+    pixels, clipped, rounded as the CLI rounds."""
+    from PIL import Image
+
+    from custom_yolo_tpu_torch.runtime import NativeDecoder, native_available
+
+    dec = NativeDecoder(os.cpu_count() or 1) if native_available() else None
+    out = []
+    for i in range(0, len(paths), batch):
+        chunk = paths[i:i + batch]
+        padded = chunk + [chunk[-1]] * (batch - len(chunk))
+        if dec is not None and all(p.lower().endswith((".jpg", ".jpeg"))
+                                   for p in padded):
+            u8, sizes, _ = dec.decode_batch(padded, hw, hw)
+        else:
+            u8 = np.zeros((batch, hw, hw, 3), np.uint8)
+            sizes = np.zeros((batch, 2), np.int32)
+            for j, path in enumerate(padded):
+                with Image.open(path) as im:
+                    im = im.convert("RGB")
+                    sizes[j] = im.size
+                    u8[j] = np.asarray(im.resize((hw, hw), Image.BILINEAR))
+        res = det.serve(torch.from_numpy(u8), conf_thres=conf,
+                        device_preprocess=True)
+        boxes, scores = res.boxes.cpu().numpy(), res.scores.cpu().numpy()
+        classes, nv = res.classes.cpu().numpy(), res.num_valid.cpu().numpy()
+        for j, path in enumerate(chunk):
+            w, h = int(sizes[j][0]), int(sizes[j][1])
+            b = boxes[j, :int(nv[j])].astype(np.float64)
+            b[:, [0, 2]] = (b[:, [0, 2]] * (w / hw)).clip(0, w)
+            b[:, [1, 3]] = (b[:, [1, 3]] * (h / hw)).clip(0, h)
+            out.append({"image": os.path.basename(path), "width": w,
+                        "height": h, "detections": [
+                            [round(float(v), 2) for v in b[k]]
+                            + [round(float(scores[j, k]), 4),
+                               int(classes[j, k])]
+                            for k in range(len(b))]})
+    return out
+
+
+def trace_idle_share(path: str, after: str = None) -> tuple:
+    """(idle share, busy ms, window ms) of a Chrome trace: the union of its
+    kernel, copy and memset intervals over the span of all its events, or
+    over the span from the end of the one event named ``after`` to the
+    last event's end (the host's span of ``after``)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if "ts" in e and "dur" in e]
+    start = min(float(e["ts"]) for e in events)
+    if after is not None:
+        # the host's span; a CUDA trace also holds its copy on the card's
+        # timeline ("gpu_user_annotation")
+        marks = [float(e["ts"]) + float(e["dur"]) for e in events
+                 if e.get("name") == after
+                 and e.get("cat") == "user_annotation"]
+        check(len(marks) == 1, f"{path} holds {len(marks)} events {after}")
+        start = marks[0]
+    stop = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    spans = sorted((max(float(e["ts"]), start),
+                    float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and float(e["ts"]) + float(e["dur"]) > start)
+    check(spans, f"{path} holds no device activity")
+    busy, end = 0.0, -1.0
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    window = stop - start
+    return 1 - busy / window, busy / 1e3, window / 1e3
+
+
+def small_eval_cli(root: str, cfg_path: str, sink: dict,
+                   devices=("cpu", "cuda")) -> dict:
+    """Phase 9c's comparison: ``torch_evaluate.py --use_nms --coco_map`` of
+    the small fp32 model (seeded weights whose boxes and class scores are
+    set so that some of them pass the gate of 0.3 and match the fixture's
+    ground truth) on each of
+    ``devices``, TF32 off, over the validation set of the config at
+    ``cfg_path`` resized to 64²: the same counts, floats within 1e-6.
+    Launches on the card are added to ``sink``. Returns the last device's
+    results."""
+    small = Detector(CLI_SMALL["width"], CLI_SMALL["depth"],
+                     CLI_SMALL["csp"], CLI_CLASSES, precision="float32",
+                     input_size=(CLI_SMALL["hw"],) * 2, device="cpu")
+    small.init(SEED + 50)
+    with torch.no_grad():
+        bins = torch.full((16,), -2.0)
+        bins[1:3] = torch.tensor([3.0, 2.0])
+        for i in range(3):
+            getattr(small.model.head, f"box{i}_out").bias.copy_(
+                bins.repeat(4))
+            # untrained, the class scores sit within 1e-5 of the bias
+            # prior; widened weights spread them over 0.27-0.36
+            cls_out = getattr(small.model.head, f"cls{i}_out")
+            cls_out.bias.fill_(-1.0)
+            cls_out.weight.mul_(5000.0)
+    small.save_weights(os.path.join(root, "small_w"))
+    cfg = Config.from_yaml(cfg_path)
+    cfg.project.num_classes = cfg.model.num_classes = CLI_CLASSES
+    for key in ("width", "depth", "csp"):
+        setattr(cfg.model, key, list(CLI_SMALL[key]))
+    cfg.model.input_size = [CLI_SMALL["hw"]] * 2
+    cfg.training.sharding.precision = "float32"
+    cfg.save(os.path.join(root, "small.yaml"))
+    results = {}
+    for device in devices:
+        out, _ = run_cli("torch_evaluate.py", [
+            "--config", os.path.join(root, "small.yaml"), "--checkpoint",
+            os.path.join(root, "small_w"), "--device", device,
+            "--conf_threshold", 0.3, "--use_nms", "--coco_map"],
+            sink if device == "cuda" else None,
+            env={**os.environ, "NVIDIA_TF32_OVERRIDE": "0"})
+        results[device] = printed_results(out)
+    want = results[devices[0]]
+    check(want["metrics"]["true_positives"] > 0,
+          f"small evaluate: no true positive to compare ({want})")
+    for device in devices[1:]:
+        for part in ("metrics", "coco"):
+            for key, value in want[part].items():
+                got = results[device][part][key]
+                check(got == value if isinstance(value, int)
+                      else abs(got - value) <= 1e-6,
+                      f"small evaluate {part}/{key}: {device} {got} vs "
+                      f"{devices[0]} {value}")
+    return results[devices[-1]]
+
+
+def cli_phase(env: dict, preset: dict) -> tuple:
+    """Phase 9: the deployment path through the command-line entry points,
+    each a child process on the card: 9a the ETL (``torch_make_fixture.py``
+    at 640, ``torch_data_preprocess.py``, RLE rows), 9b one epoch of
+    ``torch_train.py`` at x/640² bf16 B=8 (EMA on), 9c
+    ``torch_evaluate.py`` on its checkpoint (plain, ``--use_nms
+    --coco_map``, ``--quantize static``) and a small fp32 model's metrics
+    card against CPU, 9d ``save_weights``/``load_weights`` of the x
+    detector fused, optimised and static int8 (bit for bit on the card),
+    9e ``torch_serve.py`` over the fixture's images and a PNG, repeated to
+    a few hundred, from a ``save_weights`` directory, against
+    ``Detector.serve`` called here, then its warm-up, steady-state rate,
+    decode time and the card's idle share. Returns (launch counts of the
+    CLI processes, launch counts of 9d's calls in this process,
+    numbers)."""
+    check(env["pandas"] and env["pyarrow"] and env["PIL"],
+          "phase 9 needs pandas, pyarrow and PIL for the ETL")
+    from PIL import Image
+
+    from custom_yolo_tpu_torch.utils.checkpoint import restore_variables
+
+    launches = counts()
+    numbers = {}
+    root = tempfile.mkdtemp(prefix="cli_")
+    try:
+        # ------------------------------------------------------- 9a. ETL
+        data = os.path.join(root, "data")
+        _, numbers["fixture_s"] = run_cli(
+            "torch_make_fixture.py", ["--root", data, "--images",
+                                      CLI_TRAIN_IMAGES, "--size", HW,
+                                      "--seed", 2, "--classes", CLI_CLASSES])
+        cfg = trainer_config(preset, HW, "bfloat16",
+                             os.path.join(root, "ckpt"), assigner="tal",
+                             ema_decay=0.999, warmup_steps=3)
+        cfg.data.annotations_dir = os.path.join(data, "raw", "annotations")
+        cfg.data.processed_dir = os.path.join(data, "processed", "parquet")
+        cfg.data.train_images = os.path.join(data, "raw", "images", "train")
+        cfg.data.val_images = os.path.join(data, "raw", "images", "val")
+        cfg.project.log_dir = os.path.join(root, "logs")
+        cfg_path = os.path.join(root, "x.yaml")
+        cfg.save(cfg_path)
+        _, numbers["data_preprocess_s"] = run_cli(
+            "torch_data_preprocess.py", ["--mode", "val", "--config",
+                                         cfg_path])
+        t0 = time.perf_counter()
+        seg_note = etl_segmentations(env, root)
+        numbers["segmentations_s"] = time.perf_counter() - t0
+        n_val = len(os.listdir(cfg.data.val_images))
+        log(f"phase 9a ETL: torch_make_fixture.py --images "
+            f"{CLI_TRAIN_IMAGES} --size {HW} --seed 2 ({CLI_TRAIN_IMAGES} "
+            f"train + {n_val} val JPEGs and their parquet) "
+            f"{numbers['fixture_s']} s, torch_data_preprocess.py --mode val "
+            f"{numbers['data_preprocess_s']} s (process start included); "
+            f"{seg_note}")
+
+        # ----------------------------------------------------- 9b. train
+        out, numbers["train_cli_s"] = run_cli(
+            "torch_train.py", ["--config", cfg_path, "--mode", "single",
+                               "--device", "cuda", "--epochs", 1], launches)
+        ckpt_epoch = os.path.join(root, "ckpt", "model_epoch_0")
+        check(os.path.exists(os.path.join(ckpt_epoch, "state.pt")),
+              "torch_train.py wrote no model_epoch_0")
+        log(f"phase 9b torch_train.py --device cuda --epochs 1, x/640² bf16 "
+            f"B={TRAIN_BATCH} on the 9a fixture: "
+            f"{numbers['train_cli_s']} s, model_epoch_0 written")
+
+        # -------------------------------------------------- 9c. evaluate
+        evals = {}
+        for name, flags in (("plain", []),
+                            ("nms_coco", ["--use_nms", "--coco_map"]),
+                            ("static_int8", ["--quantize", "static",
+                                             "--calib_batches", 1])):
+            out, seconds = run_cli("torch_evaluate.py", [
+                "--config", cfg_path, "--checkpoint", ckpt_epoch,
+                "--device", "cuda"] + flags, launches)
+            res = printed_results(out)
+            values = list(res["metrics"].values()) + list(
+                (res["coco"] or {}).values())
+            check(res["images"] == n_val and all(
+                np.isfinite(v) for v in values),
+                f"evaluate {name}: {res}")
+            check("(EMA params)" in out,
+                  f"evaluate {name} did not restore the EMA: {out[-2000:]}")
+            # the loop is one cold batch of the 8 validation images: its
+            # time is start-up, not a rate
+            evals[name] = {"process_s": seconds,
+                           "cold_loop_s": res["seconds"],
+                           "metrics": res["metrics"], "coco": res["coco"]}
+        log(f"phase 9c torch_evaluate.py --device cuda on model_epoch_0 "
+            f"(EMA), x/640² bf16 B={TRAIN_BATCH}: {json.dumps(evals)}")
+        numbers["evaluate"] = evals
+
+        # the small fp32 model on the card and on the CPU, TF32 off
+        small = small_eval_cli(root, cfg_path, launches)
+        log(f"phase 9c small fp32 evaluate CLI card vs CPU (TF32 off, "
+            f"{CLI_SMALL['hw']}², --use_nms --coco_map): equal (counts "
+            f"exact, floats within 1e-6): {json.dumps(small['metrics'])}; "
+            f"mAP_50 {small['coco']['mAP_50']}")
+
+        # -------------------------------------------- 9d. save and load
+        x = torch.from_numpy(np.random.RandomState(SEED + 51).randint(
+            0, 256, (SERVE_BATCH, HW, HW, 3), dtype=np.uint8))
+        variables, _, _ = restore_variables(os.path.join(root, "ckpt"), 0)
+        persistence = counts()
+        reset_counts()
+        for name in ("fused", "optimized", "static_int8"):
+            det = Detector(preset["width"], preset["depth"], preset["csp"],
+                           NUM_CLASSES, input_size=(HW, HW))
+            det.load_variables(variables)
+            det.fuse()
+            if name == "optimized":
+                det.optimize_for_serving()
+            if name == "static_int8":
+                det.quantize().calibrate([normalize(x.cuda())])
+            wdir = os.path.join(root, f"w_{name}")
+            det.save_weights(wdir)
+            new = Detector(preset["width"], preset["depth"], preset["csp"],
+                           NUM_CLASSES, input_size=(HW, HW))
+            new.load_weights(wdir)
+            check(new._transform_flags() == det._transform_flags(),
+                  f"9d {name}: flags {new._transform_flags()} after the "
+                  f"load, {det._transform_flags()} before")
+            want = det.serve(x, conf_thres=POOL_CONF, device_preprocess=True)
+            got = new.serve(x, conf_thres=POOL_CONF, device_preprocess=True)
+            check(all(torch.equal(a, b) for a, b in zip(got, want))
+                  and int(want.num_valid.sum()) > 0,
+                  f"9d {name}: the reloaded detector serves another result")
+            del det, new
+        torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            persistence[name] += n
+        log(f"phase 9d save_weights/load_weights, x/640² bf16 B="
+            f"{SERVE_BATCH}, from model_epoch_0's EMA: fused, fused + "
+            f"optimize_for_serving and static int8 each serve bit for bit "
+            f"after the round trip; flags equal")
+
+        # ----------------------------------------------------- 9e. serve
+        # the fixture's 32 JPEGs and a PNG, repeated to a few hundred
+        # images so that the steady state after the first batch is timed
+        # over tens of batches
+        images = os.path.join(root, "serve_images")
+        os.makedirs(images)
+        unique = []
+        for split in ("train", "val"):
+            folder = os.path.join(data, "raw", "images", split)
+            unique += [os.path.join(folder, name)
+                       for name in sorted(os.listdir(folder))]
+        with Image.open(unique[0]) as im:
+            im.save(os.path.join(root, "frame.png"))
+        unique.append(os.path.join(root, "frame.png"))
+        for k in range(SERVE_REPEATS):
+            for src in unique:
+                shutil.copy(src, os.path.join(
+                    images, f"r{k}_{os.path.basename(src)}"))
+        paths = sorted(os.path.join(images, n) for n in os.listdir(images))
+        wdir = os.path.join(root, "w_fused")
+        serve_args = ["--images", images, "--checkpoint", wdir, "--preset",
+                      "x", "--num_classes", NUM_CLASSES, "--input_size", HW,
+                      "--batch_size", SERVE_BATCH, "--inflight", 2, "--conf",
+                      POOL_CONF, "--device", "cuda"]
+        runs = {}
+        for name, extra in (("plain", []),
+                            ("profiled", ["--profile_dir",
+                                          os.path.join(root, "prof")])):
+            out, seconds = run_cli("torch_serve.py", serve_args + [
+                "--output", os.path.join(root, f"det_{name}.json")] + extra,
+                launches)
+            m = re.search(r"(\d+) images -> (\d+) detections in ([\d.]+) s "
+                          r"\(([\d.]+) img/s", out)
+            w = re.search(r"first batch fetched after ([\d.]+) s; the other "
+                          r"(\d+) images in ([\d.]+) s \(([\d.]+) img/s\); "
+                          r"decode on the producer thread ([\d.]+) s "
+                          r"\(([\d.]+) ms/img\)", out)
+            check(m is not None and w is not None
+                  and int(m.group(1)) == len(paths),
+                  f"serve CLI {name}: {out[-2000:]}")
+            runs[name] = {
+                "process_s": seconds, "wall_s": float(m.group(3)),
+                "img_per_s_incl_warm_up": float(m.group(4)),
+                "first_batch_s": float(w.group(1)),
+                "steady_images": int(w.group(2)),
+                "steady_s": float(w.group(3)),
+                "steady_img_per_s": float(w.group(4)),
+                "decode_s": float(w.group(5)),
+                "decode_ms_per_img": float(w.group(6)),
+                "detections": int(m.group(2))}
+        decoder = re.search(r"decoder: (\w+)", out).group(1)
+        with open(os.path.join(root, "det_plain.json")) as f:
+            served = json.load(f)
+        direct = Detector(preset["width"], preset["depth"], preset["csp"],
+                          NUM_CLASSES, input_size=(HW, HW))
+        direct.load_weights(wdir)
+        want = cli_serve_direct(direct, paths, HW, SERVE_BATCH, POOL_CONF)
+        check(served == want and sum(len(r["detections"])
+                                     for r in want) > 0,
+              "serve CLI: detections.json differs from Detector.serve on "
+              "the same decoded batches")
+        del direct
+        trace_path = os.path.join(root, "prof", "trace.json")
+        idle_all, busy_all, window_all = trace_idle_share(trace_path)
+        idle, busy_ms, window_ms = trace_idle_share(
+            trace_path, after="serve_cli.first_fetch")
+        runs["profiled"].update(
+            idle_share_steady=idle, device_busy_ms_steady=busy_ms,
+            trace_window_ms_steady=window_ms, idle_share_whole=idle_all,
+            device_busy_ms_whole=busy_all, trace_window_ms_whole=window_all)
+        numbers["serve"] = dict(
+            images=len(paths), batches=-(-len(paths) // SERVE_BATCH),
+            decoder=decoder, **runs)
+        log(f"phase 9e serve CLI x/640² bf16 B={SERVE_BATCH} --inflight 2, "
+            f"{len(paths)} images ({len(unique)} files, PNGs among them, "
+            f"{SERVE_REPEATS} times), from a save_weights directory: "
+            f"detections.json equal to Detector.serve on the same decoded "
+            f"batches; {json.dumps(numbers['serve'])}")
+        plain = runs["plain"]
+        log(f"phase 9e serve CLI: wall {plain['img_per_s_incl_warm_up']} "
+            f"img/s with the warm-up; steady state "
+            f"{plain['steady_img_per_s']} img/s over "
+            f"{plain['steady_images']} images after a first batch of "
+            f"{plain['first_batch_s']} s; decoder {decoder}, "
+            f"{plain['decode_ms_per_img']} ms/img on the producer thread "
+            f"({plain['decode_s']} s of {plain['wall_s']} s); device idle "
+            f"share {idle} over the profiled run's steady state "
+            f"({idle_all} with its warm-up) | {card_line()}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, persistence, numbers
 
 
 def main() -> None:
@@ -2732,9 +3209,19 @@ def main() -> None:
     trainer_launches, _ = trainer_phase(dev, env, p)
     trainer_card_vs_cpu(env)
 
+    # --------------------------------------- 9. the command-line entry points
+    cli_launches, persistence_launches, _ = cli_phase(env, p)
+    for name in ("attention", "attention_bwd", "nms_batched", "sppf"):
+        check(cli_launches[name] > 0, f"the CLI path never launched {name}: "
+              f"{cli_launches}")
+    log(f"phase 9 launches of the cli path (the CLI processes): "
+        f"{json.dumps(cli_launches)}; of the persistence path (9d, in this "
+        f"process): {json.dumps(persistence_launches)}")
+
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
-             "int8": int8_launches, "trainer": trainer_launches}
+             "int8": int8_launches, "trainer": trainer_launches,
+             "cli": cli_launches, "persistence": persistence_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):

@@ -68,11 +68,8 @@ class DataLoader:
         if use_native is not False:
             from custom_yolo_tpu_torch.runtime import (NativeDecoder,
                                                        native_available)
-            try:
-                if native_available():
-                    self._native = NativeDecoder(self.num_workers)
-            except OSError:     # a library that builds but does not load
-                self._native = None
+            if native_available():
+                self._native = NativeDecoder(self.num_workers)
             # the native decoder squash-resizes; letterbox geometry needs
             # the PIL path (pad-aware decode)
             if getattr(dataset, "letterbox", False) and self._native:

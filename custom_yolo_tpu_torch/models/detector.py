@@ -8,7 +8,9 @@ variables), ``fuse`` (fold each
 BatchNorm into its conv), ``optimize_for_serving`` (the exact
 output-preserving transforms: space-to-depth stem and merged C3K branch
 convs), ``quantize`` and ``calibrate`` (int8 serving, dynamic then
-static), ``__call__`` (raw head output), ``serve``
+static), ``save_weights`` and ``load_weights`` (the weights and the
+transforms that made them, on disk), ``__call__`` (raw head output),
+``serve``
 (forward + DFL decode + class-aware batched NMS, fixed-shape result) and
 ``inference`` (one image in, ``(n, 6)`` detections out).
 :func:`create_train_model` gives the unfused model in training mode for
@@ -18,6 +20,8 @@ the train step.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +45,8 @@ from custom_yolo_tpu_torch.ops.quant import (DEFAULT_QUANT_SKIP,
                                              bake_static_scales,
                                              has_static_scales,
                                              quantize_fused_params)
+from custom_yolo_tpu_torch.utils.checkpoint import (TRANSFORMS_FILE,
+                                                    WEIGHTS_FILE)
 from custom_yolo_tpu_torch.utils.weights import from_jax_variables
 
 # ImageNet normalisation (reference src/data/transforms.py:12-13)
@@ -437,6 +443,55 @@ class Detector:
         self._optimized = self._s2d_stem or self._merged
         model.load_state_dict(state, strict=True)
         self._install(model, fused)
+
+    def _transform_flags(self) -> Dict[str, Any]:
+        """The transforms that made the current weights, with the keys and
+        values of the JAX ``Detector._transform_flags``."""
+        return {"fused": self._fused, "s2d_stem": self._s2d_stem,
+                "merged": self._merged, "quantized": self._quantized,
+                "quant_skip": list(self._quant_skip),
+                "static_quant": bool(self.model is not None
+                                     and self._quantized
+                                     and has_static_scales(self._state))}
+
+    def save_weights(self, path: str) -> None:
+        """Write the weights to the directory ``path``: ``weights.pt``, a
+        ``torch.save`` of the flat state dict on the CPU, and the
+        ``transforms.json`` sidecar of :meth:`_transform_flags`. A fused
+        detector saves its fp32 fold (int8 leaves where quantized), not its
+        convs cast to the compute dtype, so a reloaded detector serves and
+        quantizes as this one does."""
+        assert self.model is not None, "call .init() or load weights"
+        os.makedirs(path, exist_ok=True)
+        torch.save({k: v.detach().cpu()
+                    for k, v in self._transform_state().items()},
+                   os.path.join(path, WEIGHTS_FILE))
+        with open(os.path.join(path, TRANSFORMS_FILE), "w") as f:
+            json.dump(self._transform_flags(), f)
+
+    def load_weights(self, path: str) -> "Detector":
+        """Load what :meth:`save_weights` wrote: the recorded transforms are
+        replayed on a fresh template (the model built with them), which the
+        saved state must fill exactly. A directory without the sidecar
+        holds an unfused state. The fused cls tower is off afterwards."""
+        flags: Dict[str, Any] = {}
+        sidecar = os.path.join(path, TRANSFORMS_FILE)
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                flags = json.load(f)
+        state = torch.load(os.path.join(path, WEIGHTS_FILE),
+                           map_location="cpu", weights_only=True)
+        if bool(flags.get("static_quant")) != has_static_scales(state):
+            raise ValueError(f"{path}: the sidecar's static_quant does not "
+                             "match the saved scales")
+        self._s2d_stem = bool(flags.get("s2d_stem", False))
+        self._merged = bool(flags.get("merged", False))
+        self._optimized = self._s2d_stem or self._merged
+        self._quantized = bool(flags.get("quantized", False))
+        self._quant_skip = tuple(flags.get("quant_skip", ()))
+        self.model = None
+        self._rebuild(state, fused=bool(flags.get("fused", False)))
+        return self
 
     def fuse(self) -> "Detector":
         """Fold conv+BN for inference: each ConvBN then runs conv(+bias)+act."""

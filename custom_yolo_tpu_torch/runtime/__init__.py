@@ -5,8 +5,8 @@ batch. Host code, not a device kernel.
 
 The library is built with ``g++ -ljpeg`` at first use into ``_build/``
 beside this file. Where it cannot be built (no compiler or no
-``jpeglib.h``), :func:`native_available` is False and the data loader
-decodes with PIL.
+``jpeglib.h``), or where a library built elsewhere does not load,
+:func:`native_available` is False and the data loader decodes with PIL.
 """
 
 from __future__ import annotations
@@ -70,7 +70,12 @@ def _load():
     path = build_native()
     if path is None:
         return None
-    lib = ctypes.CDLL(path)
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        # a library built on another machine (a copied checkout) against a
+        # libjpeg that this one does not have
+        return None
     lib.yt_pool_create.restype = ctypes.c_void_p
     lib.yt_pool_create.argtypes = [ctypes.c_int]
     lib.yt_pool_destroy.restype = None

@@ -18,7 +18,7 @@ import re
 import shutil
 import tempfile
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +27,9 @@ from custom_yolo_tpu_torch.train.train_state import TrainState
 CKPT_RE = re.compile(r"model_epoch_(\d+)$")
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
+# Detector.save_weights: the flat state dict and the transforms sidecar
+WEIGHTS_FILE = "weights.pt"
+TRANSFORMS_FILE = "transforms.json"
 
 
 def save_sidecar(checkpoint_dir: str, config: Dict[str, Any]) -> None:
@@ -41,6 +44,50 @@ def load_sidecar(checkpoint_dir: str) -> Optional[Dict[str, Any]]:
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def find_weights(path: str) -> Tuple[Optional[str], str, Optional[int]]:
+    """Where the weights under ``path`` are, as ``(kind, directory,
+    epoch)``. ``path`` is a ``Detector.save_weights`` directory, a
+    ``model_epoch_N`` directory, or a root whose latest ``model_epoch_N``
+    is taken. ``kind`` is ``"weights"`` (``directory`` holds the
+    ``transforms.json`` sidecar), ``"state"`` (a train-state checkpoint of
+    ``epoch`` under the root ``directory``) or None (nothing there)."""
+    path = os.path.normpath(path)
+    if os.path.exists(os.path.join(path, TRANSFORMS_FILE)):
+        return "weights", path, None
+    m = CKPT_RE.match(os.path.basename(path))
+    if m:
+        root, epoch = os.path.dirname(path), int(m.group(1))
+    else:
+        names = os.listdir(path) if os.path.isdir(path) else []
+        root, epoch = path, max((int(found.group(1)) for found in
+                                 map(CKPT_RE.match, names) if found),
+                                default=None)
+    if epoch is None:
+        return None, root, None
+    epoch_dir = os.path.join(root, f"model_epoch_{epoch}")
+    if os.path.exists(os.path.join(epoch_dir, TRANSFORMS_FILE)):
+        return "weights", epoch_dir, None
+    if os.path.exists(os.path.join(epoch_dir, STATE_FILE)):
+        return "state", root, epoch
+    return None, root, None
+
+
+def restore_variables(root: str, epoch: int, live: bool = False
+                      ) -> Tuple[Dict[str, torch.Tensor], int, str]:
+    """The variables that serving reads from the train-state checkpoint of
+    ``epoch`` under ``root``: the model's state dict with the EMA over it
+    where the state tracks one, the live state dict with ``live``. The file
+    is read onto the host; its optimizer part goes unused, and
+    ``Detector.load_variables`` checks the keys. Returns (variables, the
+    state's epoch, "EMA" or "live")."""
+    state = torch.load(os.path.join(root, f"model_epoch_{epoch}",
+                                    STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    if live or state["ema"] is None:
+        return state["model"], int(state["epoch"]), "live"
+    return {**state["model"], **state["ema"]}, int(state["epoch"]), "EMA"
 
 
 def host_copy(obj):

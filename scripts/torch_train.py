@@ -16,6 +16,7 @@ Usage:
 """
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -65,6 +66,7 @@ def main(argv=None):
     from custom_yolo_tpu_torch.utils.common import get_num_workers
     from custom_yolo_tpu_torch.utils.logging import (MetricsLogger,
                                                      setup_console_logging)
+    from custom_yolo_tpu_torch.utils.profiling import kernel_launches
     from custom_yolo_tpu_torch.utils.summary import count_params, summarize
 
     cfg = Config.from_yaml(args.config)
@@ -179,6 +181,7 @@ def main(argv=None):
     finally:
         metrics_logger.close()
         ckpt.close()
+    print(f"[INFO] kernel launches: {json.dumps(kernel_launches())}")
     return result
 
 

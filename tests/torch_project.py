@@ -82,3 +82,17 @@ def random_jax_variables(model, hw, seed):
         return np.full(shape, CLS_BIAS if prior else 0.0, np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, dict(shapes))
+
+
+def load_script(name):
+    """The module of ``scripts/{name}.py``, imported without running its
+    ``main`` (a fresh module object on each call)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"script_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
