@@ -39,7 +39,14 @@ process on the card: the ETL (``scripts/torch_make_fixture.py``,
 checkpoint (plain, with NMS and COCO mAP, static int8; a small fp32
 model's metrics card against CPU), ``Detector.save_weights`` /
 ``load_weights`` bit for bit, and ``scripts/torch_serve.py`` against
-``Detector.serve``; the CLIs' launch counts make the ``cli`` path. Any
+``Detector.serve``; the CLIs' launch counts make the ``cli`` path. Phase
+10 runs the distributed path: DDP and FSDP2 train steps as ranks in child
+processes (one card a rank under NCCL, or two gloo ranks sharing the one
+card) against the one-card step on the same global batch, ``torchrun
+scripts/torch_train.py --mode dp|fsdp`` against phase 9b's single-process
+epoch (validation counters, the fsdp checkpoint restored into ``single``
+bit for bit), and ``parallel.serve.make_sharded_serve_fn`` against
+``Detector.serve``; its launch counts make the ``distributed`` path. Any
 failed check ends the run with
 a non-zero exit. The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
@@ -1644,7 +1651,37 @@ def small_eval_cli(root: str, cfg_path: str, sink: dict,
     return results[devices[-1]]
 
 
-def cli_phase(env: dict, preset: dict) -> tuple:
+def cli_fixture(env: dict, preset: dict, root: str) -> tuple:
+    """Phase 9a: ``torch_make_fixture.py`` (24 train and 8 validation JPEGs
+    at 640, 8 classes) and ``torch_data_preprocess.py`` under
+    ``root/data``, and the x/640² bf16 config that reads them
+    (``root/x.yaml``: TAL, EMA, warm-up, checkpoints to ``root/ckpt``).
+    Returns (the config's path, the scripts' seconds)."""
+    check(env["pandas"] and env["pyarrow"] and env["PIL"],
+          "phase 9 needs pandas, pyarrow and PIL for the ETL")
+    numbers = {}
+    data = os.path.join(root, "data")
+    _, numbers["fixture_s"] = run_cli(
+        "torch_make_fixture.py", ["--root", data, "--images",
+                                  CLI_TRAIN_IMAGES, "--size", HW,
+                                  "--seed", 2, "--classes", CLI_CLASSES])
+    cfg = trainer_config(preset, HW, "bfloat16",
+                         os.path.join(root, "ckpt"), assigner="tal",
+                         ema_decay=0.999, warmup_steps=3)
+    cfg.data.annotations_dir = os.path.join(data, "raw", "annotations")
+    cfg.data.processed_dir = os.path.join(data, "processed", "parquet")
+    cfg.data.train_images = os.path.join(data, "raw", "images", "train")
+    cfg.data.val_images = os.path.join(data, "raw", "images", "val")
+    cfg.project.log_dir = os.path.join(root, "logs")
+    cfg_path = os.path.join(root, "x.yaml")
+    cfg.save(cfg_path)
+    _, numbers["data_preprocess_s"] = run_cli(
+        "torch_data_preprocess.py", ["--mode", "val", "--config",
+                                     cfg_path])
+    return cfg_path, numbers
+
+
+def cli_phase(env: dict, preset: dict, root: str) -> tuple:
     """Phase 9: the deployment path through the command-line entry points,
     each a child process on the card: 9a the ETL (``torch_make_fixture.py``
     at 640, ``torch_data_preprocess.py``, RLE rows), 9b one epoch of
@@ -1656,38 +1693,19 @@ def cli_phase(env: dict, preset: dict) -> tuple:
     9e ``torch_serve.py`` over the fixture's images and a PNG, repeated to
     a few hundred, from a ``save_weights`` directory, against
     ``Detector.serve`` called here, then its warm-up, steady-state rate,
-    decode time and the card's idle share. Returns (launch counts of the
-    CLI processes, launch counts of 9d's calls in this process,
-    numbers)."""
-    check(env["pandas"] and env["pyarrow"] and env["PIL"],
-          "phase 9 needs pandas, pyarrow and PIL for the ETL")
+    decode time and the card's idle share. The fixture goes under
+    ``root`` and stays there. Returns (launch counts of the CLI processes,
+    launch counts of 9d's calls in this process, numbers)."""
     from PIL import Image
 
     from custom_yolo_tpu_torch.utils.checkpoint import restore_variables
 
     launches = counts()
-    numbers = {}
-    root = tempfile.mkdtemp(prefix="cli_")
     try:
         # ------------------------------------------------------- 9a. ETL
+        cfg_path, numbers = cli_fixture(env, preset, root)
+        cfg = Config.from_yaml(cfg_path)
         data = os.path.join(root, "data")
-        _, numbers["fixture_s"] = run_cli(
-            "torch_make_fixture.py", ["--root", data, "--images",
-                                      CLI_TRAIN_IMAGES, "--size", HW,
-                                      "--seed", 2, "--classes", CLI_CLASSES])
-        cfg = trainer_config(preset, HW, "bfloat16",
-                             os.path.join(root, "ckpt"), assigner="tal",
-                             ema_decay=0.999, warmup_steps=3)
-        cfg.data.annotations_dir = os.path.join(data, "raw", "annotations")
-        cfg.data.processed_dir = os.path.join(data, "processed", "parquet")
-        cfg.data.train_images = os.path.join(data, "raw", "images", "train")
-        cfg.data.val_images = os.path.join(data, "raw", "images", "val")
-        cfg.project.log_dir = os.path.join(root, "logs")
-        cfg_path = os.path.join(root, "x.yaml")
-        cfg.save(cfg_path)
-        _, numbers["data_preprocess_s"] = run_cli(
-            "torch_data_preprocess.py", ["--mode", "val", "--config",
-                                         cfg_path])
         t0 = time.perf_counter()
         seg_note = etl_segmentations(env, root)
         numbers["segmentations_s"] = time.perf_counter() - t0
@@ -1706,6 +1724,11 @@ def cli_phase(env: dict, preset: dict) -> tuple:
         ckpt_epoch = os.path.join(root, "ckpt", "model_epoch_0")
         check(os.path.exists(os.path.join(ckpt_epoch, "state.pt")),
               "torch_train.py wrote no model_epoch_0")
+        # the epoch's record, phase 10b's single-process reference
+        records = [line.split(": ", 1)[1] for line in out.splitlines()
+                   if line.startswith("[INFO] history: ")]
+        check(len(records) == 1, "torch_train.py printed no history")
+        numbers["train_record"] = json.loads(records[0])
         log(f"phase 9b torch_train.py --device cuda --epochs 1, x/640² bf16 "
             f"B={TRAIN_BATCH} on the 9a fixture: "
             f"{numbers['train_cli_s']} s, model_epoch_0 written")
@@ -1869,13 +1892,527 @@ def cli_phase(env: dict, preset: dict) -> tuple:
             f"share {idle} over the profiled run's steady state "
             f"({idle_all} with its warm-up) | {card_line()}")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        # 9b's 0.9 GB checkpoint; the fixture stays for phase 10
+        shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
     return launches, persistence, numbers
+
+
+# ------------------------------------------------------ the distributed phase
+# phase 10a: the DDP and FSDP2 train steps against one card on the same
+# global batch: x/640² bf16 (8 images a rank, 4 where two ranks share a
+# card) and the small model in fp32, DIST_STEPS SGD steps each (lr
+# DIST_LR, clipped to global norm 1, EMA on; TAL, so that score_sum
+# crosses the ranks); then, for x only, DIST_TIMED timed steps and one
+# profiled one
+DIST_STEPS = 3
+DIST_TIMED = 3
+DIST_LR = 1e-3
+DIST_FSDP_MIN = 1024
+# limits, against the one-card run: each step's total_loss and grad_norm
+# (relative errors) and the change of the parameters and BatchNorm
+# statistics over the DIST_STEPS steps as one vector (its error's norm
+# over its norm). fp32 (TF32 off), against the one-card fp32 run: the
+# loss limit of tests/test_sharding.py (1e-5); the norm's of
+# tests/test_torch_train.py (5e-3: the gradient's norm is the most
+# sensitive number of a step, 5.5e-5 to 1.45e-4 measured on an H100);
+# 1e-4 for the change, where a gradient that the ranks did not
+# synchronise misses by tens of percent. bf16: the ranks convolve batches
+# of another size, for
+# which cuDNN picks other kernels, BatchNorm sums in another order, and a
+# rounding may move one of TAL's top-k picks, so the one-card bf16 run is
+# no tighter a reference; both bf16 runs are held to the one-card fp32
+# run, and the ranks' error may be DIST_BF16_FACTOR times the one-card
+# bf16 run's own (at least DIST_BF16_FLOOR).
+DIST_TOL = {"total_loss": 1e-5, "grad_norm": 5e-3, "change": 1e-4}
+DIST_BF16_FACTOR = 3.0
+DIST_BF16_FLOOR = 1e-3
+# 10b: torch_train.py's batch per device; 10c: sharded serve's timed calls
+DIST_CLI_BATCH = 4
+GLOO_PROBE = ("all_reduce", "broadcast", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_gather", "reduce_scatter")
+
+
+def dist_cases(preset: dict, shared: bool) -> list:
+    """Phase 10a's cases: (name, widths, precision, hw, classes, images a
+    rank)."""
+    widths = {k: preset[k] for k in ("width", "depth", "csp")}
+    small = {k: SMALL[k] for k in ("width", "depth", "csp")}
+    return [("small_fp32", small, "float32", SMALL["hw"],
+             SMALL["num_classes"], SMALL["batch"]),
+            ("x_bf16", widths, "bfloat16", HW, NUM_CLASSES,
+             TRAIN_BATCH // 2 if shared else TRAIN_BATCH)]
+
+
+def dist_engine(case: tuple, device, global_batch: bool):
+    """Model, state, step and batch of a 10a case: the port's training
+    entry points with plain SGD (clip threshold 1, EMA on) and the TAL
+    loss; the whole global batch, on the host."""
+    _, widths, precision, hw, nc, _ = case
+    model = create_train_model(widths["width"], widths["depth"],
+                               widths["csp"], nc, precision=precision,
+                               device=device, seed=SEED + 60)
+    optimizer = torch.optim.SGD(model.parameters(), lr=DIST_LR)
+    optimizer.grad_clip = 1.0
+    state = TrainState.create(model, optimizer,
+                              torch.Generator().manual_seed(SEED), ema=True)
+    loss_fn = DetectionLoss(LossConfig(num_classes=nc, assigner="tal"),
+                            global_batch=global_batch)
+    return model, state, loss_fn
+
+
+def dist_worker(job: str, args_path: str, rank: int, world: int,
+                addr: str) -> None:
+    """One rank of phase 10 (``chip_smoke.py --dist-worker``): ``probe``
+    tries each collective that DDP and FSDP2 call on CUDA tensors under
+    ``args["backend"]``; ``step`` runs a 10a case's steps under dp or
+    fsdp. Writes its results to ``args["out"].{rank}.pt``."""
+    import faulthandler
+
+    from custom_yolo_tpu_torch.core.mesh import (MeshSpec, create_mesh,
+                                                 initialize_distributed)
+    from custom_yolo_tpu_torch.parallel.sharding import (shard_batch,
+                                                         shard_train_state)
+
+    # a crash in a collective's thread prints every thread's stack
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(args_path) as f:
+        args = json.load(f)
+    dev = initialize_distributed(addr, world, rank, device="cuda",
+                                 backend=args["backend"])
+    if world == 1:
+        # a group of one, which initialize_distributed does not make
+        torch.distributed.init_process_group(
+            args["backend"], init_method=f"tcp://{addr}", world_size=1,
+            rank=0)
+    result = {"device": str(dev)}
+    if job == "probe":
+        import torch.distributed as dist
+        t = torch.full((8,), float(rank + 1), device=dev)
+        ops = {
+            "all_reduce": lambda: dist.all_reduce(t.clone()),
+            "broadcast": lambda: dist.broadcast(t.clone(), 0),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(8 * world, device=dev), t),
+            "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                torch.empty(8 // world, device=dev), t),
+            "all_gather": lambda: dist.all_gather(
+                [torch.empty(8, device=dev) for _ in range(world)], t),
+            "reduce_scatter": lambda: dist.reduce_scatter(
+                torch.empty(8 // world, device=dev), list(t.chunk(world)))}
+        for name in GLOO_PROBE:
+            try:
+                ops[name]()
+                torch.cuda.synchronize(dev)
+                result[name] = "ok"
+            except Exception as e:     # the probe's answer, not a failure
+                result[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    else:
+        case = tuple(args["case"])
+        model, state, loss_fn = dist_engine(case, dev, global_batch=True)
+        mesh = create_mesh(MeshSpec.for_mode(args["mode"]),
+                           device_type=dev.type)
+        state = shard_train_state(state, mesh,
+                                  min_weight_size=DIST_FSDP_MIN)
+        step = make_train_step(state.module, loss_fn, state.optimizer,
+                               ema_decay=0.999)
+        n = case[5]
+        batch = shard_batch({k: v[rank * n:(rank + 1) * n] for k, v in
+                             torch.load(args["batch"]).items()}, dev)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        metrics = []
+        for _ in range(DIST_STEPS):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        result["metrics"] = metrics
+        result["model"] = host_copy(state.state_dict()["model"])
+        result["sharded"] = sum(
+            type(p).__name__ == "DTensor" for p in model.parameters())
+        result["launches"] = read_counts()
+        times = []
+        for _ in range(DIST_TIMED if args["timed"] else 0):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        result["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if times:
+            result["step_ms"] = statistics.median(times)
+            result["comm"] = comm_share(lambda: step(state, batch), reps=1)
+            result["launches"] = read_counts()
+    torch.save(result, f"{args['out']}.{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def comm_share(fn, reps: int) -> dict:
+    """What ``reps`` calls of ``fn`` spend in collectives, from a profiler
+    trace: the device time of NCCL kernels, of host-device copies (gloo
+    stages CUDA tensors through the host) and of all kernels, and on the
+    host the union of the spans of collective ops (names with ``nccl``,
+    ``gloo`` or ``c10d``), against the window."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    nccl = copies = busy = 0.0
+    host, by_name = [], {}
+    for e in events:
+        if "dur" not in e:
+            continue
+        name, dur = e.get("name", ""), float(e["dur"]) / 1e3
+        if e.get("cat") == "kernel":
+            busy += dur
+            nccl += dur if "nccl" in name.lower() else 0.0
+        elif e.get("cat") == "gpu_memcpy":
+            copies += dur
+        elif e.get("cat") == "cpu_op" and any(
+                k in name.lower() for k in ("nccl", "gloo", "c10d")):
+            host.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+            total, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (total + dur, n + 1)
+    host_ms, end = 0.0, -1.0
+    for lo, hi in sorted(host):
+        if hi > end:
+            host_ms += (hi - max(lo, end)) / 1e3
+            end = hi
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"calls": reps, "window_ms": window_ms,
+            "kernel_ms": busy, "nccl_kernel_ms": nccl,
+            "memcpy_ms": copies, "host_collective_ms": host_ms,
+            "nccl_share_of_window": nccl / window_ms,
+            "host_collective_share_of_window": host_ms / window_ms,
+            "kernel_share_of_window": busy / window_ms,
+            "host_collective_ops": [[k[:60], ms, n] for k, (ms, n) in top]}
+
+
+def spawn_ranks(job: str, args: dict, world: int, root: str,
+                timeout: int = 600) -> list:
+    """``world`` ranks of ``dist_worker`` as child processes on a free
+    port of this host; a rank's non-zero exit fails the run. Returns each
+    rank's results."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    args = dict(args, out=os.path.join(root, f"{job}_{len(os.listdir(root))}"))
+    path = args["out"] + ".json"
+    with open(path, "w") as f:
+        json.dump(args, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+         "--dist-worker", job, path, str(rank), str(world),
+         f"localhost:{port}"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"phase 10 {job} rank {rank} exited with "
+              f"{p.returncode}:\n{out[-6000:]}")
+    return [torch.load(f"{args['out']}.{rank}.pt", weights_only=False)
+            for rank in range(world)]
+
+
+def one_card(case: tuple, batch: dict) -> tuple:
+    """A 10a case's DIST_STEPS steps on one card over the whole global
+    batch: (the state dict before, each step's metrics, the state dict
+    after), on the host."""
+    model, state, loss_fn = dist_engine(case, "cuda", global_batch=False)
+    before = host_copy(model.state_dict())
+    step = make_train_step(model, loss_fn, state.optimizer, ema_decay=0.999)
+    cuda_batch = {k: v.cuda() for k, v in batch.items()}
+    metrics = []
+    for _ in range(DIST_STEPS):
+        state, m = step(state, cuda_batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    after = host_copy(model.state_dict())
+    del model, state, step, cuda_batch
+    torch.cuda.empty_cache()
+    return before, metrics, after
+
+
+def step_errors(ref: tuple, got: tuple) -> dict:
+    """The largest relative error of a run's total_loss and grad_norm over
+    its steps, and of its change of the state (:func:`change_error`),
+    against ``ref`` (:func:`one_card`'s result); ``got`` is (metrics,
+    state dict after)."""
+    before, ref_metrics, ref_after = ref
+    metrics, after = got[-2], got[-1]
+    errs = {key: max(abs(g[key] - w[key]) / abs(w[key])
+                     for g, w in zip(metrics, ref_metrics))
+            for key in ("total_loss", "grad_norm")}
+    errs["change"] = change_error(before, ref_after, after)
+    return errs
+
+
+def change_error(before: dict, ref: dict, got: dict) -> float:
+    """‖(got − before) − (ref − before)‖ / ‖ref − before‖ over every float
+    tensor of the state dicts: the parameters' and statistics' change."""
+    num = den = 0.0
+    for key, b in before.items():
+        if not b.is_floating_point():
+            continue
+        d_ref = ref[key].double() - b.double()
+        num += float(((got[key].double() - b.double()) - d_ref).square()
+                     .sum())
+        den += float(d_ref.square().sum())
+    return (num / den) ** 0.5
+
+
+def torchrun_train(cfg_path: str, mode: str, world: int, ckpt: str,
+                   backend: str, sink: dict) -> tuple:
+    """Phase 10b: ``torchrun --nproc_per_node world scripts/torch_train.py
+    --mode mode`` for one epoch at DIST_CLI_BATCH images a device; the
+    ranks' launch counts go to ``sink``. Returns (rank 0's last epoch
+    record, seconds)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(world), "--master_port", str(port),
+           os.path.join(REPO, "scripts", "torch_train.py"), "--config",
+           cfg_path, "--device", "cuda", "--mode", mode, "--epochs", "1",
+           "--checkpoint_dir", ckpt, "--batch_size", str(DIST_CLI_BATCH),
+           "--backend", backend]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                       timeout=900)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"{' '.join(cmd)} exited with {r.returncode}:"
+          f"\n{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    lines = r.stdout.splitlines()
+    launch_lines = [line[len(LAUNCH_LINE):] for line in lines
+                    if line.startswith(LAUNCH_LINE)]
+    check(len(launch_lines) == world, f"10b {mode}: {len(launch_lines)} "
+          f"launch lines from {world} ranks")
+    for line in launch_lines:
+        for name, n in json.loads(line).items():
+            sink[name] += n
+    history = [json.loads(line.split(": ", 1)[1]) for line in lines
+               if line.startswith("[INFO] history: ")]
+    check(len(history) == 1, f"10b {mode}: no history line")
+    return history[0], seconds
+
+
+def distributed_phase(env: dict, preset: dict, root: str,
+                      single: dict) -> tuple:
+    """Phase 10, distributed training and sharded serving. With two or more
+    cards the ranks are one a card under NCCL; with one, 10a first asks
+    gloo whether it takes CUDA tensors for every collective DDP and FSDP2
+    call, and then runs two gloo ranks on ``cuda:0`` (or, if not, a world
+    of one NCCL rank). 10a: DDP and FSDP2 steps as child processes against
+    the one-card step on the same global batch; 10b: ``torchrun
+    scripts/torch_train.py`` dp and fsdp for one epoch on phase 9's
+    fixture (``root/x.yaml``), the validation counters against a
+    single-process run over the same global batches, the fsdp checkpoint
+    restored into ``single`` bit for bit (``single`` is phase 9b's record,
+    an epoch of one process over those global batches); 10c:
+    ``make_sharded_serve_fn``
+    over the cards at x/640² B=8, fused and static int8, against
+    ``Detector.serve``. Returns (the launch counts of the distributed
+    path, numbers)."""
+    from custom_yolo_tpu_torch.parallel.serve import make_sharded_serve_fn
+
+    card = card_line()
+    cards = torch.cuda.device_count()
+    launches = counts()
+    numbers = {}
+    work = os.path.join(root, "dist")
+    os.makedirs(work, exist_ok=True)
+    # ------------------------------------------------ 10a. one step each
+    if cards >= 2:
+        world, backend, shared = 2, "nccl", False
+        how = "two ranks under NCCL, one card each"
+    else:
+        probe = spawn_ranks("probe", {"backend": "gloo"}, 2, work)
+        bad = {k: v for r in probe for k, v in r.items()
+               if k in GLOO_PROBE and v != "ok"}
+        if bad:
+            world, backend, shared = 1, "nccl", False
+            how = f"a world of one NCCL rank (gloo refused {bad})"
+        else:
+            world, backend, shared = 2, "gloo", True
+            how = ("two gloo ranks on cuda:0 (gloo took CUDA tensors for "
+                   f"{', '.join(GLOO_PROBE)})")
+    log(f"phase 10a ranks: {how} | {card}")
+    steps = {}
+    for case in dist_cases(preset, shared):
+        name, _, precision, hw, nc, per_rank = case
+        n = per_rank * world
+        batch = train_batch(n, hw, TRAIN_MAX_BOXES if hw == HW
+                            else SMALL["boxes"], nc, SEED + 61, "cpu")
+        torch.save(batch, os.path.join(work, f"{name}_batch.pt"))
+        # the one-card runs over the whole global batch: fp32 (the
+        # reference) and, for bf16, bf16 (its own error)
+        truth = one_card(case[:2] + ("float32",) + case[3:], batch)
+        floor = None
+        if precision != "float32":
+            own = one_card(case, batch)
+            floor = step_errors(truth, own)
+            limits = {k: DIST_BF16_FACTOR * max(v, DIST_BF16_FLOOR)
+                      for k, v in floor.items()}
+        else:
+            limits = DIST_TOL
+        for mode in ("dp", "fsdp"):
+            ranks = spawn_ranks("step", {
+                "case": list(case), "mode": mode, "backend": backend,
+                "batch": os.path.join(work, f"{name}_batch.pt"),
+                "timed": precision != "float32"}, world, work)
+            for r in ranks:
+                for table_name, count in r["launches"].items():
+                    launches[table_name] += count
+            errs = step_errors(truth, (ranks[0]["metrics"],
+                                       ranks[0]["model"]))
+            same = all(torch.equal(ranks[0]["model"][k], r["model"][k])
+                       for r in ranks[1:] for k in truth[2])
+            log(f"phase 10a {name} {mode}: errors against one card in fp32 "
+                f"{errs}, the one-card {precision} run's own {floor}, "
+                f"limits {limits}, ranks agree {same}")
+            check(all(errs[k] <= limits[k] for k in limits) and same,
+                  f"10a {name} {mode}: errors {errs} above {limits} (or the "
+                  f"ranks disagree: {not same})")
+            check((ranks[0]["sharded"] > 0) == (mode == "fsdp" and
+                                                world > 1),
+                  f"10a {name} {mode}: {ranks[0]['sharded']} parameters "
+                  f"sharded")
+            steps[name, mode] = {
+                "ranks": world, "images_a_rank": per_rank,
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+                "sharded_params": ranks[0]["sharded"],
+                "errors": errs, "own_bf16_errors": floor}
+            if "step_ms" in ranks[0]:
+                step_ms = [r["step_ms"] for r in ranks]
+                steps[name, mode].update(
+                    step_ms_per_rank=step_ms,
+                    img_per_s_all_ranks=n / max(step_ms) * 1e3,
+                    comm_rank0=ranks[0]["comm"])
+            log(f"phase 10a {name} {mode}, {how}, {n} images ({per_rank} a "
+                f"rank), {DIST_STEPS} SGD steps, held to one card on the "
+                f"same batch: {json.dumps(steps[name, mode])} | {card}")
+    numbers["steps"] = {f"{k[0]}/{k[1]}": v for k, v in steps.items()}
+
+    # ------------------------------------------------------ 10b. the CLI
+    cfg_path = os.path.join(root, "x.yaml")
+    records, cli_s = {"single": single}, {}
+    for mode in ("dp", "fsdp"):
+        records[mode], cli_s[mode] = torchrun_train(
+            cfg_path, mode, world, os.path.join(work, f"ck_{mode}"),
+            backend, launches)
+    counters = ("val/true_positives", "val/false_positives",
+                "val/false_negatives", "val/total_ground_truths",
+                "val/total_predictions")
+    for mode in ("dp", "fsdp"):
+        check(all(records[mode][k] == records["single"][k]
+                  for k in counters),
+              f"10b {mode}: counters "
+              f"{[records[mode][k] for k in counters]} against single's "
+              f"{[records['single'][k] for k in counters]}")
+    # the fsdp checkpoint into a single-card trainer
+    cfg = Config.from_yaml(cfg_path)
+    trainer = Trainer(cfg, create_train_model(
+        preset["width"], preset["depth"], preset["csp"], NUM_CLASSES,
+        device="cuda", seed=SEED + 62))
+    CheckpointManager(os.path.join(work, "ck_fsdp")).restore(trainer.state)
+    written = torch.load(os.path.join(work, "ck_fsdp", "model_epoch_0",
+                                      "state.pt"), weights_only=True)
+    restored = trainer.state.state_dict()
+    same = all(torch.equal(restored[part][k].cpu(), v)
+               for part in ("model", "ema")
+               for k, v in written[part].items())
+    same &= all(torch.equal(restored["optimizer"]["state"][i][k].cpu(), v)
+                for i, moments in written["optimizer"]["state"].items()
+                for k, v in moments.items())
+    check(same and trainer.state.epoch == written["epoch"] == 1,
+          "10b: the fsdp checkpoint did not restore into single bit for "
+          "bit")
+    del trainer, restored, written
+    torch.cuda.empty_cache()
+    numbers["cli"] = {"seconds": cli_s, "records": records}
+    log(f"phase 10b torchrun --nproc_per_node {world} torch_train.py "
+        f"--backend {backend}, x/640² bf16, {DIST_CLI_BATCH} images a "
+        f"device, one epoch: dp {cli_s['dp']} s, fsdp {cli_s['fsdp']} s; "
+        f"validation counters equal to phase 9b's single process over the "
+        f"same global batches "
+        f"({[records['single'][k] for k in counters]}); val loss dp "
+        f"{records['dp']['val/total_loss']} fsdp "
+        f"{records['fsdp']['val/total_loss']} single "
+        f"{records['single']['val/total_loss']}; the fsdp checkpoint "
+        f"restores into single bit for bit | {card}")
+
+    # ---------------------------------------------- 10c. sharded serving
+    devices = ([f"cuda:{i}" for i in range(cards)] if cards >= 2
+               else ["cuda:0", "cuda:0"])
+    images = torch.from_numpy(np.random.RandomState(SEED + 63).randint(
+        0, 256, (SERVE_BATCH, HW, HW, 3), dtype=np.uint8))
+    det = Detector(preset["width"], preset["depth"], preset["csp"],
+                   NUM_CLASSES, input_size=(HW, HW))
+    det.init(SEED)
+    det.fuse()
+    serve_kw = dict(conf_thres=POOL_CONF, device_preprocess=True)
+    served = {}
+    for variant in ("fused", "int8_static"):
+        if variant == "int8_static":
+            det.quantize().calibrate([normalize(images.cuda())])
+        fn = make_sharded_serve_fn(det, devices, **serve_kw)
+        reset_counts()
+        out = fn(images)
+        ms = time_ms(lambda: fn(images), reps=10, warmup=2)
+        torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            launches[name] += n
+        whole = det.serve(images, **serve_kw)
+        v = whole.valid.cpu()
+        exact = all(torch.equal(a.cpu(), b.cpu())
+                    for a, b in zip(out[2:], whole[2:]))
+        check(exact and int(v.sum()) > 0 and torch.allclose(
+            out.boxes.cpu()[v], whole.boxes.cpu()[v], rtol=1e-5, atol=1e-4)
+            and torch.allclose(out.scores.cpu()[v], whole.scores.cpu()[v],
+                               rtol=1e-5, atol=1e-6),
+              f"10c {variant}: the sharded serve differs from "
+              f"Detector.serve (num_valid {out.num_valid.tolist()} vs "
+              f"{whole.num_valid.tolist()})")
+        served[variant] = {"ms": ms, "img_per_s": SERVE_BATCH / ms * 1e3,
+                           "serve_ms": time_ms(lambda: det.serve(
+                               images, **serve_kw), reps=10, warmup=2)}
+    numbers["serve"] = served
+    log(f"phase 10c make_sharded_serve_fn over {devices}, x/640² B="
+        f"{SERVE_BATCH} (uint8, device_preprocess): fused bf16 and static "
+        f"int8 equal to Detector.serve (num_valid, valid, classes exact; "
+        f"boxes and scores within tests/test_sharding.py's tolerances); "
+        f"{json.dumps(served)} | {card}")
+    del det
+    torch.cuda.empty_cache()
+    return launches, numbers
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                    int(sys.argv[5]), sys.argv[6])
+        return
     # COCOmAP.compute forks worker processes once it holds 2048 per-class
     # records; this process holds a CUDA context, which a forked child must
     # not touch. The batches here stay far below that size, and one worker
@@ -3210,18 +3747,33 @@ def main() -> None:
     trainer_card_vs_cpu(env)
 
     # --------------------------------------- 9. the command-line entry points
-    cli_launches, persistence_launches, _ = cli_phase(env, p)
+    root = tempfile.mkdtemp(prefix="cli_")
+    try:
+        cli_launches, persistence_launches, cli_numbers = cli_phase(
+            env, p, root)
+        for name in ("attention", "attention_bwd", "nms_batched", "sppf"):
+            check(cli_launches[name] > 0, f"the CLI path never launched "
+                  f"{name}: {cli_launches}")
+        log(f"phase 9 launches of the cli path (the CLI processes): "
+            f"{json.dumps(cli_launches)}; of the persistence path (9d, in "
+            f"this process): {json.dumps(persistence_launches)}")
+
+        # ------------------ 10. distributed training and sharded serving
+        dist_launches, _ = distributed_phase(
+            env, p, root, single=cli_numbers["train_record"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for name in ("attention", "attention_bwd", "nms_batched", "sppf"):
-        check(cli_launches[name] > 0, f"the CLI path never launched {name}: "
-              f"{cli_launches}")
-    log(f"phase 9 launches of the cli path (the CLI processes): "
-        f"{json.dumps(cli_launches)}; of the persistence path (9d, in this "
-        f"process): {json.dumps(persistence_launches)}")
+        check(dist_launches[name] > 0, f"the distributed path never "
+              f"launched {name}: {dist_launches}")
+    log(f"phase 10 launches of the distributed path (10a's and 10b's ranks, "
+        f"10c in this process): {json.dumps(dist_launches)}")
 
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
              "int8": int8_launches, "trainer": trainer_launches,
-             "cli": cli_launches, "persistence": persistence_launches}
+             "cli": cli_launches, "persistence": persistence_launches,
+             "distributed": dist_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):

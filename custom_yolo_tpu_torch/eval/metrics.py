@@ -7,8 +7,8 @@ precision/recall/F1 and the reference's "mAP" (mean per-class precision over
 classes with GT — NOT a real AP, quirk documented in SURVEY §2). For the
 true COCO metric use :mod:`custom_yolo_tpu_torch.eval.coco_map`.
 
-The counterpart's ``all_reduce`` (counters summed across processes) is not
-here yet: it comes with the port's distributed collectives.
+``all_reduce`` sums the counters over every process of a distributed
+validation (``custom_yolo_tpu/eval/metrics.py:119-132``).
 
 Implementation: numpy, with the inner match vectorized over targets (the
 reference double-loops in python over preds×targets — hot-loop #3 in
@@ -119,6 +119,21 @@ class DetectionMetrics:
 
         self.total_predictions += len(predictions)
         self.total_ground_truths += len(targets)
+
+    def all_reduce(self) -> "DetectionMetrics":
+        """Sum the counters over every process (multi-process validation):
+        the five totals and the four per-class arrays. Nothing in a single
+        process."""
+        from custom_yolo_tpu_torch.parallel.collectives import reduce_value
+        for attr in ("total_predictions", "total_ground_truths",
+                     "true_positives", "false_positives",
+                     "false_negatives"):
+            setattr(self, attr, int(reduce_value(
+                getattr(self, attr), average=False)))
+        for attr in ("class_tp", "class_fp", "class_fn", "class_gt_count"):
+            setattr(self, attr, np.asarray(reduce_value(
+                getattr(self, attr), average=False)))
+        return self
 
     def compute(self) -> Dict[str, float]:
         precision = self.true_positives / (

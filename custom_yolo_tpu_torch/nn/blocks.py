@@ -15,6 +15,7 @@ import contextlib
 from typing import Iterator, List
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -110,6 +111,40 @@ class ConvBN(nn.Module):
         # off while a rematerialised forward is recomputed in the backward
         # pass (frozen_statistics): the forward already took this batch
         self.update_stats = True
+        # on while every rank of the default process group holds part of
+        # the batch (parallel.sharding.shard_train_state): a training
+        # forward then normalises with the global batch's statistics
+        self.global_batch = False
+
+    def _global_batch_norm(self, yf: torch.Tensor) -> torch.Tensor:
+        """Training BatchNorm over the batch of every rank. Each rank takes
+        its rows' per-channel mean and biased variance in fp32 (as the
+        one-device path does), turns them into sums and sums of squares in
+        float64, where E[x²] − E[x]² loses nothing that matters, and one
+        ``all_reduce`` adds them and the element counts over the ranks;
+        the gradient is carried back through it (the reduction's backward
+        sums every rank's gradient of the statistics). The running update
+        takes the global biased variance."""
+        bn = self.bn
+        c = yf.shape[1]
+        var, mean = torch.var_mean(yf, dim=(0, 2, 3), unbiased=False)
+        n = yf.numel() // c
+        mean64 = mean.double()
+        stats = torch.cat([mean64 * n, (var.double() + mean64 * mean64) * n,
+                           mean64.new_full((1,), n)])
+        stats = dist_fn.all_reduce(stats)
+        count = stats[2 * c]
+        mean64 = stats[:c] / count
+        mean = mean64.float()
+        var = (stats[c:2 * c] / count - mean64 * mean64).clamp_min(
+            0.0).float()
+        if self.update_stats:
+            with torch.no_grad():
+                bn.running_mean.lerp_(mean, bn.momentum)
+                bn.running_var.lerp_(var, bn.momentum)
+        scale = (bn.weight * torch.rsqrt(var + bn.eps))[None, :, None, None]
+        return (yf - mean[None, :, None, None]) * scale \
+            + bn.bias[None, :, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = (self.conv(x) if isinstance(self.conv, _QuantConv)
@@ -118,7 +153,9 @@ class ConvBN(nn.Module):
             # normalise in fp32 and round once, as flax's BatchNorm does
             bn = self.bn
             yf = y.float()
-            if self.training:
+            if self.training and self.global_batch:
+                y = self._global_batch_norm(yf).to(x.dtype)
+            elif self.training:
                 # flax's running update: the *biased* fp32 batch variance
                 # (F.batch_norm would store the unbiased one, n/(n−1)
                 # larger). One pass; flax's E[x²] − E[x]² is the same

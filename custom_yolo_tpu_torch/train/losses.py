@@ -19,6 +19,7 @@ import dataclasses
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from custom_yolo_tpu_torch.ops.boxes import (bbox2dist, box_ciou,
@@ -164,13 +165,48 @@ class DetectionLoss:
       gt_boxes:  (N, G, 4) centre-xywh in pixels
       gt_labels: (N, G) integer
       gt_mask:   (N, G) bool/int — 1 for real boxes, 0 for padding
+
+    ``global_batch=True`` (every rank of the default process group holds
+    part of the batch, as under dp and fsdp): the loss is that of the
+    global batch. Under ``tal`` the sums are divided by the global
+    ``score_sum`` (all-reduced; the assigner's inputs carry no gradient),
+    under ``nearest`` the image means are over every rank's images. The
+    metrics are the global values, and the returned loss is this rank's
+    share times the world size, so that the gradient average that DDP and
+    FSDP take is the gradient of the global loss.
     """
 
-    def __init__(self, config: LossConfig):
+    def __init__(self, config: LossConfig, global_batch: bool = False):
         self.cfg = config
+        self.global_batch = global_batch
+
+    def _global_sum(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` (no gradient) summed over every rank under
+        ``global_batch``, else itself."""
+        if not self.global_batch:
+            return value
+        value = value.detach().clone()
+        dist.all_reduce(value)
+        return value
 
     def __call__(self, preds, anchors, strides, gt_boxes, gt_labels, gt_mask
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        total, metrics = self._local(preds, anchors, strides, gt_boxes,
+                                     gt_labels, gt_mask)
+        if not self.global_batch:
+            return total, metrics
+        if self.cfg.assigner == "nearest":
+            # image means: this rank's share of the global batch's
+            n = torch.tensor(float(preds.shape[0]), device=preds.device)
+            frac = n / self._global_sum(n)
+            total = total * frac
+            metrics = {k: v * frac for k, v in metrics.items()}
+        keys = list(metrics)
+        summed = self._global_sum(torch.stack([metrics[k] for k in keys]))
+        return total * dist.get_world_size(), dict(zip(keys, summed))
+
+    def _local(self, preds, anchors, strides, gt_boxes, gt_labels, gt_mask
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         preds = preds.float()
         gt_boxes = gt_boxes.float()
@@ -275,7 +311,7 @@ class DetectionLoss:
             alpha=cfg.tal_alpha, beta=cfg.tal_beta,
             dense_scores=not cfg.sparse_targets)
 
-        score_sum = asn.anchor_scores.sum().clamp_min(1.0)
+        score_sum = self._global_sum(asn.anchor_scores.sum()).clamp_min(1.0)
 
         if cfg.sparse_targets:
             # BCE(l, t) = [max(l, 0) + log1p(e^−|l|)] − l·t, and t is zero

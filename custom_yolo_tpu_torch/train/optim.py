@@ -10,11 +10,14 @@ applied by the train step (:func:`clip_by_global_norm_`), in optax's form.
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple
+from typing import Iterable, List, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from custom_yolo_tpu_torch.config import TrainingConfig
+from custom_yolo_tpu_torch.core.mesh import FSDP_AXIS
 
 
 class PlateauState(NamedTuple):
@@ -85,15 +88,38 @@ def current_learning_rate(optimizer: torch.optim.Optimizer) -> float:
     return optimizer.param_groups[0]["lr"]
 
 
+def local_tensors(tensors: Iterable[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor, or for a ``DTensor`` (a parameter, gradient, moment or
+    EMA that FSDP2 shards) this rank's shard of it, which in-place
+    arithmetic updates."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over all of ``tensors`` together, in fp32."""
-    norms = torch._foreach_norm([t.detach().float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """L2 norm over all of ``tensors`` together, in fp32. The shards of
+    ``DTensor``s are squared and summed over their mesh, so the norm is the
+    full gradient's, not this rank's shard's; plain tensors are the same on
+    every rank and count once."""
+    tensors = list(tensors)
+    sharded = [t for t in tensors if isinstance(t, DTensor)]
+    plain = [t for t in tensors if not isinstance(t, DTensor)]
+    norms = torch._foreach_norm([t.detach().float() for t in plain])
+    norm = (torch.linalg.vector_norm(torch.stack(norms)) if plain
+            else torch.zeros((), device=tensors[0].device))
+    if not sharded:
+        return norm
+    norms = torch._foreach_norm(
+        [t.detach().to_local().float() for t in sharded])
+    sq = torch.linalg.vector_norm(torch.stack(norms)) ** 2
+    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group(FSDP_AXIS))
+    return (norm ** 2 + sq).sqrt()
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], norm: torch.Tensor,
                          max_norm: float) -> None:
-    """Scale ``grads`` in place by ``max_norm / max(norm, max_norm)``, the
-    form of ``optax.clip_by_global_norm`` (``torch.nn.utils.
-    clip_grad_norm_`` divides by ``norm + 1e-6`` instead)."""
-    torch._foreach_mul_(list(grads), max_norm / norm.clamp_min(max_norm))
+    """Scale ``grads`` (shards of ``DTensor``s in place) by
+    ``max_norm / max(norm, max_norm)``, the form of
+    ``optax.clip_by_global_norm`` (``torch.nn.utils.clip_grad_norm_``
+    divides by ``norm + 1e-6`` instead)."""
+    torch._foreach_mul_(local_tensors(grads),
+                        max_norm / norm.clamp_min(max_norm))

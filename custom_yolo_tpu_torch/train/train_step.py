@@ -2,22 +2,32 @@
 ``custom_yolo_tpu/train/train_step.py``): forward, loss, backward,
 clipping, AdamW, EMA — eagerly, on the state's device. bf16 needs no
 loss scaling, so there is no GradScaler.
+
+The same steps run under dp and fsdp (``parallel.sharding.
+shard_train_state``): the forward goes through the state's ``module`` (the
+DDP wrapper, or the model that FSDP2 shards), gradients are synchronised
+on the last microbatch only, the parameters FSDP2 leaves whole have their
+gradients averaged here, clipping takes the norm of the full gradient, and
+the EMA is updated shard by shard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from custom_yolo_tpu_torch.train.losses import DetectionLoss
 from custom_yolo_tpu_torch.train.optim import (clip_by_global_norm_,
                                                current_learning_rate,
-                                               global_norm,
+                                               global_norm, local_tensors,
                                                set_learning_rate)
-from custom_yolo_tpu_torch.train.train_state import TrainState
+from custom_yolo_tpu_torch.train.train_state import TrainState, full_tensor
 
 Batch = Dict[str, torch.Tensor]
 
@@ -53,14 +63,20 @@ def make_train_step(model: nn.Module, loss_fn: DetectionLoss,
     keeps the base value, which the plateau scheduler owns.
 
     ``metrics["grad_norm"]`` is the global norm *before* clipping.
+
+    ``model`` is what the forward calls: the state's ``module`` under dp
+    (DDP), else the model itself.
     """
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def forward_backward(batch: Batch) -> Dict[str, torch.Tensor]:
-        preds, anchors, strides = model(batch["images"])
-        loss, metrics = loss_fn(preds, anchors, strides, batch["gt_boxes"],
-                                batch["gt_labels"], batch["gt_mask"])
-        loss.backward()
+    def forward_backward(batch: Batch, sync: bool
+                         ) -> Dict[str, torch.Tensor]:
+        with _gradient_sync(model, sync):
+            preds, anchors, strides = model(batch["images"])
+            loss, metrics = loss_fn(preds, anchors, strides,
+                                    batch["gt_boxes"], batch["gt_labels"],
+                                    batch["gt_mask"])
+            loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch: Batch
@@ -71,20 +87,24 @@ def make_train_step(model: nn.Module, loss_fn: DetectionLoss,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if accumulate_steps <= 1:
-            metrics = forward_backward(batch)
+            metrics = forward_backward(batch, sync=True)
         else:
             n = batch["images"].shape[0]
             if n % accumulate_steps:
                 raise ValueError(f"batch of {n} does not divide into "
                                  f"{accumulate_steps} microbatches")
             size = n // accumulate_steps
-            # gradients add up across the microbatches' backward passes
+            # gradients add up across the microbatches' backward passes;
+            # the ranks exchange them after the last one only
             seq = [forward_backward({k: v[i * size:(i + 1) * size]
-                                     for k, v in batch.items()})
+                                     for k, v in batch.items()},
+                                    sync=i == accumulate_steps - 1)
                    for i in range(accumulate_steps)]
-            torch._foreach_div_([p.grad for p in params], accumulate_steps)
+            torch._foreach_div_(local_tensors(p.grad for p in params),
+                                accumulate_steps)
             metrics = {k: torch.stack([m[k] for m in seq]).mean()
                        for k in seq[0]}
+        _average_gradients(state.replicated)
         grads = [p.grad for p in params]
         norm = global_norm(grads)
         metrics["grad_norm"] = norm
@@ -103,28 +123,61 @@ def make_train_step(model: nn.Module, loss_fn: DetectionLoss,
             d = ema_decay * (1.0 - math.exp(-(state.step + 1) / ema_tau))
             live = state.variables
             keys = list(state.ema)
-            # ema + (1 − d)·(value − ema)
-            torch._foreach_lerp_([state.ema[k] for k in keys],
-                                 [live[k] for k in keys], 1.0 - d)
+            # ema + (1 − d)·(value − ema), shard by shard
+            torch._foreach_lerp_(local_tensors(state.ema[k] for k in keys),
+                                 local_tensors(live[k] for k in keys),
+                                 1.0 - d)
         state.step += 1
         return state, metrics
 
     return train_step
 
 
+@contextlib.contextmanager
+def _gradient_sync(module: nn.Module, enabled: bool):
+    """Whether the backward passes inside exchange gradients between ranks
+    (DDP's ``no_sync``, FSDP2's ``set_requires_gradient_sync``); a module
+    on one device has nothing to exchange."""
+    if isinstance(module, DistributedDataParallel) and not enabled:
+        with module.no_sync():
+            yield
+        return
+    if hasattr(module, "set_requires_gradient_sync"):
+        module.set_requires_gradient_sync(enabled)
+    yield
+
+
+def _average_gradients(params) -> None:
+    """Average the gradients of ``params`` over every rank, in one
+    ``all_reduce`` of their concatenation: the parameters FSDP2 leaves
+    whole, which no wrapper synchronises."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= dist.get_world_size()
+    torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
+
+
 def make_eval_step(model: nn.Module, loss_fn: DetectionLoss) -> Callable:
     """``eval_step(state, batch) -> (metrics, preds, anchors, strides)``:
     forward in evaluation mode (running BatchNorm statistics) on the
     state's ``eval_variables`` — the EMA when it is tracked — and the
-    loss. The model's own values are not touched."""
+    loss. The model's own values are not touched. Under fsdp ``model`` is
+    the state's ``eval_model``, a plain replica, and the sharded variables
+    are gathered whole before the forward."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         was_training = model.training
         model.eval()
+        variables = {k: full_tensor(v)
+                     for k, v in state.eval_variables.items()}
         try:
             preds, anchors, strides = torch.func.functional_call(
-                model, state.eval_variables, (batch["images"],))
+                model, variables, (batch["images"],))
         finally:
             model.train(was_training)
         _, metrics = loss_fn(preds, anchors, strides, batch["gt_boxes"],

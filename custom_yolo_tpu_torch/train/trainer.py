@@ -1,11 +1,20 @@
-"""Epoch/step training engine on one device (counterpart of
-``custom_yolo_tpu/train/trainer.py``).
+"""Epoch/step training engine (counterpart of
+``custom_yolo_tpu/train/trainer.py``), on one device or, under ``dp`` and
+``fsdp`` with more than one process, data parallel over every rank
+(``parallel.sharding.shard_train_state``; with one process both train as
+``single``, as the JAX trainer does on one device).
 
 * The loader reshuffles per epoch; one ``torch.Generator`` on the device is
   reseeded for each ``(project.seed, epoch, step)`` of training and each
   ``(project.seed + 1, epoch, step)`` of validation — the roles of
   ``prng.epoch_key`` and ``fold_in`` — so a resumed run draws exactly what
-  an unbroken run draws;
+  an unbroken run draws. Ranks above 0 fold their rank into that seed, so
+  that no two ranks draw one stream for different rows; rank 0 draws the
+  single-process stream;
+* each rank loads, stages and augments its own rows; logging, the metrics
+  logger and checkpoint writes belong to the rank that is given them
+  (rank 0), and validation sums the detection counters and averages the
+  loss means over the ranks;
 * with ``data.pin_memory`` batch N+1 is copied through pinned memory
   (non-blocking) and augmented before batch N's step is awaited;
 * metrics stay device tensors and are read once per log interval;
@@ -27,10 +36,15 @@ import torch
 from torch import nn
 
 from custom_yolo_tpu_torch.config import Config
+from custom_yolo_tpu_torch.core.mesh import (MeshSpec, create_mesh, rank,
+                                             world_size)
 from custom_yolo_tpu_torch.data.transforms import make_device_batch
 from custom_yolo_tpu_torch.eval.decode import (decode_predictions,
                                                decoded_to_lists)
 from custom_yolo_tpu_torch.eval.metrics import DetectionMetrics
+from custom_yolo_tpu_torch.parallel.collectives import (reduce_metrics,
+                                                        reduce_value)
+from custom_yolo_tpu_torch.parallel.sharding import shard_train_state
 from custom_yolo_tpu_torch.train.losses import DetectionLoss, LossConfig
 from custom_yolo_tpu_torch.train.optim import (build_optimizer,
                                                plateau_update,
@@ -40,11 +54,11 @@ from custom_yolo_tpu_torch.train.train_step import (make_eval_step,
                                                     make_train_step)
 
 
-def step_seed(seed: int, epoch: int, step: int) -> int:
+def step_seed(seed: int, epoch: int, step: int, rank: int = 0) -> int:
     """The generator's seed for one step of one epoch: a hash of the three
     (numpy's ``SeedSequence``), so that neighbouring steps and epochs draw
-    unrelated streams."""
-    entropy = [seed % 2 ** 64, epoch, step]
+    unrelated streams; a rank above 0 is hashed in as a fourth word."""
+    entropy = [seed % 2 ** 64, epoch, step] + ([rank] if rank else [])
     return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
 
@@ -57,15 +71,15 @@ def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 class Trainer:
     """Trains ``model`` (from ``create_train_model``, on its device) as the
-    config says. Only ``training.sharding.mode == "single"`` runs here."""
+    config says. Under ``dp``/``fsdp`` in a process group of more than one
+    rank, every rank builds its Trainer from the same config and seed and
+    calls ``fit`` with its own loaders (``process_index``/``process_count``
+    of the ranks); only rank 0 is given a logger's files, a metrics logger
+    and a checkpoint manager."""
 
     def __init__(self, config: Config, model: nn.Module, logger=None,
                  metrics_logger=None, checkpoint_manager=None):
         tcfg = config.training
-        if tcfg.sharding.mode != "single":
-            raise NotImplementedError(
-                f"sharding mode {tcfg.sharding.mode!r}: the port trains on "
-                f"one device ('single'); dp and fsdp are ROADMAP.md A3")
         self.config = config
         self.model = model
         self.logger = logger
@@ -73,24 +87,33 @@ class Trainer:
         self.ckpt = checkpoint_manager
         self.device = next(model.parameters()).device
 
-        self.optimizer = build_optimizer(model.parameters(), tcfg)
+        self.mesh = None
+        if tcfg.sharding.mode != "single" and world_size() > 1:
+            self.mesh = create_mesh(MeshSpec.for_mode(tcfg.sharding.mode),
+                                    device_type=self.device.type)
         self.loss_fn = DetectionLoss(LossConfig(
             num_classes=config.model.num_classes,
             reg_max=config.model.reg_max,
             lambda_cls=tcfg.lambda_cls,
             lambda_box=tcfg.lambda_box,
             lambda_dfl=tcfg.lambda_dfl,
-            assigner=tcfg.assigner))
+            assigner=tcfg.assigner), global_batch=self.mesh is not None)
+        self.state = TrainState.create(
+            model, build_optimizer(model.parameters(), tcfg),
+            torch.Generator().manual_seed(config.project.seed),
+            ema=tcfg.ema_decay > 0)
+        if self.mesh is not None:
+            self.state = shard_train_state(
+                self.state, self.mesh,
+                min_weight_size=tcfg.sharding.fsdp_min_weight_size)
+        self.optimizer = self.state.optimizer
         self.train_step = make_train_step(
-            model, self.loss_fn, self.optimizer,
+            self.state.module or model, self.loss_fn, self.optimizer,
             accumulate_steps=tcfg.accumulate_steps,
             ema_decay=tcfg.ema_decay, ema_tau=tcfg.ema_tau,
             warmup_steps=tcfg.warmup_steps)
-        self.eval_step = make_eval_step(model, self.loss_fn)
-        self.state = TrainState.create(
-            model, self.optimizer,
-            torch.Generator().manual_seed(config.project.seed),
-            ema=tcfg.ema_decay > 0)
+        self.eval_step = make_eval_step(self.state.eval_model or model,
+                                        self.loss_fn)
         self.base_lr = tcfg.learning_rate
         self.history: list = []
         # the augmentation draws, reseeded for every step
@@ -110,7 +133,7 @@ class Trainer:
     def _log(self, msg: str) -> None:
         if self.logger is not None:
             self.logger.info(msg)
-        else:
+        elif rank() == 0:
             print(msg)
 
     def _device_batches(self, loader, seed: int, epoch: int, train: bool,
@@ -123,7 +146,7 @@ class Trainer:
         depth = 2 if pin else 1
         buf: deque = deque()
         for step, host_batch in enumerate(loader):
-            self._gen.manual_seed(step_seed(seed, epoch, step))
+            self._gen.manual_seed(step_seed(seed, epoch, step, rank()))
             buf.append((step, host_batch, make_device_batch(
                 host_batch, self._gen, self.device, train=train,
                 mosaic_prob=mosaic_prob, mixup_prob=mixup_prob,
@@ -149,6 +172,10 @@ class Trainer:
         best_val = float("inf")
         best_epoch = None
         bad_epochs = 0
+        if self.mesh is not None:
+            _check_same_everywhere(
+                [len(train_loader), len(val_loader)],
+                "every rank's loaders must give as many batches")
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             train_metrics = self._train_epoch(train_loader, epoch)
@@ -183,11 +210,9 @@ class Trainer:
                 f"mAP={det_metrics.get('mAP', 0):.4f} lr={lr:.2e} "
                 f"({record['epoch_time_s']:.1f}s)")
 
-            if self.ckpt is not None and \
-                    (epoch + 1) % ckpt_cfg.save_interval == 0:
-                self.ckpt.save(epoch, self.state,
-                               metrics={k: float(v)
-                                        for k, v in record.items()})
+            if (epoch + 1) % ckpt_cfg.save_interval == 0:
+                self._checkpoint(epoch, {k: float(v)
+                                         for k, v in record.items()})
 
             tracked = sign * float(record.get(
                 metric_key, val_metrics["total_loss"]))
@@ -207,6 +232,15 @@ class Trainer:
                 "best_metric": sign * best_val,
                 "best_metric_name": metric_key,
                 "best_epoch": best_epoch}
+
+    def _checkpoint(self, epoch: int, metrics: Dict[str, float]) -> None:
+        """Save through the checkpoint manager, where this rank has one.
+        Under fsdp the state is gathered whole by every rank (a
+        collective), and the rank with the manager writes it."""
+        if self.ckpt is not None:
+            self.ckpt.save(epoch, self.state, metrics=metrics)
+        elif self.state.eval_model is not None:
+            self.state.state_dict()
 
     # ------------------------------------------------------------------
     def _train_epoch(self, loader, epoch: int) -> Dict[str, float]:
@@ -273,4 +307,20 @@ class Trainer:
             count += 1
         loss_metrics = ({k: v / count for k, v in sums.items()}
                         if count else {"total_loss": float("nan")})
+        if self.mesh is not None:
+            det.all_reduce()
+            loss_metrics = reduce_metrics(loss_metrics)
         return loss_metrics, det.compute()
+
+
+def _check_same_everywhere(values, what: str) -> None:
+    """Raise on every rank unless each rank holds the same ``values``
+    (their sum squared equals the world size times their sum of squares
+    only when they are equal)."""
+    values = np.asarray(values, np.float64)
+    total, squares = reduce_value(np.stack([values, values * values]),
+                                  average=False)
+    if np.any(total * total != world_size() * squares):
+        raise ValueError(f"{what}: this rank has {values.tolist()}, the "
+                         f"sums over {world_size()} ranks are "
+                         f"{total.tolist()}")

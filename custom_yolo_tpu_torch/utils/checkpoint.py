@@ -8,6 +8,13 @@ state) and ``metrics.json`` beside it. A ``model_config.json`` sidecar
 records the architecture, precision and mode. Every epoch is kept unless
 ``max_to_keep`` says otherwise. Orbax checkpoints of the JAX package are
 not read here.
+
+The file holds the whole state whatever the mode that wrote it: under
+fsdp ``TrainState.state_dict`` gathers the sharded values (every rank
+takes part; the rank with the manager writes), and ``restore`` puts each
+rank's shard of them into a sharded state, so a single, dp or fsdp
+checkpoint resumes in any mode, as orbax's sharding-aware restore does
+for the JAX package (``custom_yolo_tpu/utils/checkpoint.py:68-80``).
 """
 
 from __future__ import annotations

@@ -173,7 +173,8 @@ def test_checkpoint_round_trip_keeps_ema_and_statistics(tmp_path):
     """A saved state restores into another model's state bit for bit: EMA
     (parameters and statistics), BatchNorm statistics, AdamW moments, step,
     epoch, plateau, the generator; metrics beside it; every epoch kept by
-    default, the oldest pruned under ``max_to_keep``."""
+    default, the oldest pruned under ``max_to_keep``. A trainer in dp or
+    fsdp mode in one process steps as ``single`` does."""
     cfg = port_config.Config.from_dict(_raw_config())
     src = Trainer(cfg, _port_model(cfg))
     with torch.no_grad():
@@ -208,7 +209,23 @@ def test_checkpoint_round_trip_keeps_ema_and_statistics(tmp_path):
     assert load_sidecar(str(tmp_path / "ck")) == {"width": WIDTH}
     with pytest.raises(ValueError, match="another model"):
         Trainer(cfg, _port_model(cfg)).load_state(dst.state)
-    single = _raw_config()
-    single["training"]["sharding"]["mode"] = "dp"
-    with pytest.raises(NotImplementedError, match="A3"):
-        Trainer(port_config.Config.from_dict(single), _port_model(cfg))
+    # dp and fsdp in one process train as single, as the JAX trainer does
+    # on one device: one step of each equals single's, bit for bit
+    batch = {"images": torch.rand(4, HW, HW, 3,
+                                  generator=torch.Generator().manual_seed(5)),
+             "gt_boxes": torch.full((4, 2, 4), 20.0),
+             "gt_labels": torch.tensor([[0, 1]] * 4),
+             "gt_mask": torch.ones(4, 2, dtype=torch.bool)}
+    stepped = {}
+    for mode in ("single", "dp", "fsdp"):
+        raw = _raw_config()
+        raw["training"]["sharding"]["mode"] = mode
+        trainer = Trainer(port_config.Config.from_dict(raw), _port_model(cfg))
+        assert trainer.mesh is None and trainer.state.module is None
+        _, metrics = trainer.train_step(trainer.state, batch)
+        stepped[mode] = (metrics, trainer.model.state_dict())
+    for mode in ("dp", "fsdp"):
+        for key, value in stepped["single"][0].items():
+            assert torch.equal(stepped[mode][0][key], value), (mode, key)
+        for key, value in stepped["single"][1].items():
+            assert torch.equal(stepped[mode][1][key], value), (mode, key)

@@ -96,3 +96,28 @@ def load_script(name):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def detection_cases(seed, n=8, num_classes=7):
+    """``n`` seeded ``(predictions, targets)`` pairs for
+    ``DetectionMetrics.update``, both (k, 5) centre-xywh + class: the
+    targets, some of them found again (jittered, a few with another
+    class), and some spurious predictions."""
+    rng = np.random.RandomState(seed)
+    cases = []
+    for _ in range(n):
+        m = rng.randint(0, 6)
+        targets = np.concatenate(
+            [rng.uniform(20, 60, (m, 2)), rng.uniform(8, 30, (m, 2)),
+             rng.randint(0, num_classes, (m, 1))], axis=1)
+        found = targets[rng.rand(m) < 0.7].copy()
+        found[:, :4] += rng.normal(0, 2, found[:, :4].shape)
+        flip = rng.rand(len(found)) < 0.2
+        found[flip, 4] = (found[flip, 4] + 1) % num_classes
+        k = rng.randint(0, 3)
+        spurious = np.concatenate(
+            [rng.uniform(0, 80, (k, 4)), rng.randint(0, num_classes,
+                                                      (k, 1))], axis=1)
+        cases.append((np.concatenate([found, spurious]).astype(np.float32),
+                      targets.astype(np.float32)))
+    return cases
