@@ -46,8 +46,14 @@ card) against the one-card step on the same global batch, ``torchrun
 scripts/torch_train.py --mode dp|fsdp`` against phase 9b's single-process
 epoch (validation counters, the fsdp checkpoint restored into ``single``
 bit for bit), and ``parallel.serve.make_sharded_serve_fn`` against
-``Detector.serve``; its launch counts make the ``distributed`` path. Any
-failed check ends the run with
+``Detector.serve``; its launch counts make the ``distributed`` path.
+Phase 11 exports the x detector with ``export.export_serving`` (fused at
+B=8 and B=1, optimised with the fused cls tower, static int8), loads each
+artifact fresh, holds its result to ``serve`` bit for bit and counts the
+kernel launches of its calls (the ``export`` path), times it beside
+``serve``, and imports a reference-format checkpoint of the seeded x
+model through ``scripts/torch_import_torch.py``. Any failed check ends
+the run with
 a non-zero exit. The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit as ``nvidia-smi`` reports them.
 """
@@ -74,6 +80,7 @@ from custom_yolo_tpu_torch.data import transforms
 from custom_yolo_tpu_torch.eval import (COCOmAP, DetectionMetrics,
                                         decode_predictions)
 from custom_yolo_tpu_torch.eval.decode import decoded_to_lists
+from custom_yolo_tpu_torch.export import export_serving, load_exported
 from custom_yolo_tpu_torch.models.detector import (IMAGENET_MEAN,
                                                    IMAGENET_STD,
                                                    create_train_model,
@@ -95,6 +102,7 @@ from custom_yolo_tpu_torch.train.trainer import Trainer
 from custom_yolo_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                     host_copy)
 from custom_yolo_tpu_torch.utils.profiling import kernel_wrappers
+from custom_yolo_tpu_torch.utils.torch_port import to_torch_state_dict
 
 SEED = 0
 HW = 640
@@ -2406,6 +2414,128 @@ def distributed_phase(env: dict, preset: dict, root: str,
     return launches, numbers
 
 
+EXPORT_BATCHES = (SERVE_BATCH, 1)
+# the x preset's 10 kernel launches of one serve, by table name, at each
+# batch: K1 twice, K5 once, the keep mask of a batch or of one image
+EXPORT_SERVE = {SERVE_BATCH: dict(attention=2, sppf=1, nms_batched=1),
+                1: dict(attention=2, sppf=1, nms_single=1)}
+
+
+def same_result(got, want) -> tuple:
+    """(bit-equal, the first field that differs and its largest gap, or
+    None; classes and valid equal and boxes within 1e-3 px)."""
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.equal(a, b):
+            gap = (a.double() - b.double()).abs().max().item()
+            near = (torch.equal(got.classes, want.classes)
+                    and torch.equal(got.valid, want.valid)
+                    and (got.boxes - want.boxes).abs().max().item() <= 1e-3)
+            return False, (name, gap), near
+    return True, None, True
+
+
+def export_phase(preset: dict, root: str, detectors: dict,
+                 norm_batch: torch.Tensor) -> tuple:
+    """Phase 11: the serving artifacts of ``export.py`` on the card and the
+    reference-checkpoint importer. 11a the fused x detector exported at
+    B=8 and B=1, each loaded in a fresh ``ExportedServer`` and called on
+    phase 7's batch: bit-equal to ``serve``, its launches counted; 11b
+    ``optimize_for_serving`` with the fused cls tower; 11c static int8;
+    11d export seconds, artifact MB, events ms and a profile (device busy
+    ms, idle share, kernels a call) beside ``serve``'s; 11e
+    ``to_torch_state_dict`` of the seeded x model as a reference checkpoint
+    (``module.`` keys in ``{"model_state": …}``) through
+    ``scripts/torch_import_torch.py --fuse`` as a child process, then
+    ``load_weights`` serves bit-equal to the fused detector. Returns the
+    artifact calls' launch table and the numbers."""
+    launches, numbers = counts(), {}
+    cases = [("fused", detectors["fused"], False, EXPORT_BATCHES),
+             ("optimized_cls_tower", detectors["optimized"], True,
+              (SERVE_BATCH,)),
+             ("static_int8", detectors["int8"], False, (SERVE_BATCH,))]
+    for name, det, tower, batches in cases:
+        det.model.head.fused_cls_tower = tower
+        for b in batches:
+            images = norm_batch[:b].contiguous()
+            path = os.path.join(root, f"export_{name}_b{b}")
+            t0 = time.perf_counter()
+            export_serving(det, path, batch_size=b, conf_thres=POOL_CONF)
+            export_s = time.perf_counter() - t0
+            server = load_exported(path)
+            want = det.serve(images, conf_thres=POOL_CONF)
+            torch.cuda.synchronize()
+            reset_counts()
+            got = server(images)
+            torch.cuda.synchronize()
+            call = read_counts()
+            want_call = counts(**EXPORT_SERVE[b],
+                               cls_tower=6 if tower else 0)
+            check(call == want_call, f"11 {name} B={b}: one artifact call "
+                  f"launched {call}, want {want_call}")
+            for k in call:
+                launches[k] += call[k]
+            equal, first, near = same_result(got, want)
+            if not equal:
+                log(f"phase 11 {name} B={b}: artifact differs from serve, "
+                    f"first at {first[0]} by {first[1]}; classes and valid "
+                    f"equal, boxes within 1e-3 px: {near}")
+            check(near, f"11 {name} B={b}: the artifact differs from serve "
+                  f"beyond the limit ({first})")
+            check(int(want.num_valid.min()) > 0, f"11 {name} B={b}: an "
+                  "image has no detection")
+            row = {"export_s": export_s,
+                   "artifact_mb": os.path.getsize(os.path.join(
+                       path, "serving.pt2")) / 2 ** 20,
+                   "weights_moved_at_load": server.weights_moved,
+                   "bit_equal": equal, "first_difference": first,
+                   "launches": {k: v for k, v in call.items() if v},
+                   "artifact_ms": time_ms(lambda: server(images)),
+                   "serve_ms": time_ms(lambda: det.serve(
+                       images, conf_thres=POOL_CONF)),
+                   "graph_ops": sum(node.op == "call_function" for node
+                                    in server.program.graph.nodes)}
+            for label, fn in (("artifact", lambda: server(images)),
+                              ("serve", lambda: det.serve(
+                                  images, conf_thres=POOL_CONF))):
+                prof = profile_call(fn)
+                row[f"{label}_profile"] = {
+                    k: prof[k] for k in ("device_busy_ms", "window_ms",
+                                         "idle_share", "kernels_per_call")}
+            numbers[f"{name}_b{b}"] = row
+            log(f"phase 11 {name} B={b}: {json.dumps(row)}")
+            shutil.rmtree(path)
+            del server
+    detectors["optimized"].model.head.fused_cls_tower = False
+
+    # ------------------------------------------------- 11e. the importer
+    unfused = Detector(preset["width"], preset["depth"], preset["csp"],
+                       NUM_CLASSES, input_size=(HW, HW))
+    unfused.init(SEED)
+    ref = {f"module.{k}": v for k, v in
+           to_torch_state_dict(unfused.model.state_dict()).items()}
+    del unfused
+    ckpt = os.path.join(root, "reference.pt")
+    torch.save({"model_state": ref, "epoch": 0}, ckpt)
+    out = os.path.join(root, "imported")
+    _, import_s = run_cli("torch_import_torch.py", [
+        "--torch_checkpoint", ckpt, "--output", out, "--preset", "x",
+        "--num_classes", NUM_CLASSES, "--fuse"])
+    new = Detector(preset["width"], preset["depth"], preset["csp"],
+                   NUM_CLASSES, input_size=(HW, HW)).load_weights(out)
+    want = detectors["fused"].serve(norm_batch, conf_thres=POOL_CONF)
+    got = new.serve(norm_batch, conf_thres=POOL_CONF)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "11e the imported reference checkpoint serves another result "
+          "than the fused detector")
+    numbers["import"] = {"reference_keys": len(ref), "import_s": import_s}
+    log(f"phase 11e torch_import_torch.py --preset x --fuse on a "
+        f"{len(ref)}-key reference checkpoint: {import_s:.2f} s; the "
+        f"loaded directory serves bit-equal to the fused detector")
+    del new
+    return launches, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -3761,6 +3891,11 @@ def main() -> None:
         # ------------------ 10. distributed training and sharded serving
         dist_launches, _ = distributed_phase(
             env, p, root, single=cli_numbers["train_record"])
+
+        # ------------- 11. serving artifacts and the reference importer
+        export_launches, _ = export_phase(
+            p, root, {"fused": det, "optimized": opt, "int8": q8},
+            norm_batch)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for name in ("attention", "attention_bwd", "nms_batched", "sppf"):
@@ -3768,12 +3903,14 @@ def main() -> None:
               f"launched {name}: {dist_launches}")
     log(f"phase 10 launches of the distributed path (10a's and 10b's ranks, "
         f"10c in this process): {json.dumps(dist_launches)}")
+    log(f"phase 11 launches of the export path (the artifacts' calls): "
+        f"{json.dumps(export_launches)}")
 
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
              "int8": int8_launches, "trainer": trainer_launches,
              "cli": cli_launches, "persistence": persistence_launches,
-             "distributed": dist_launches}
+             "distributed": dist_launches, "export": export_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):

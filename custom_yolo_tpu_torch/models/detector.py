@@ -309,6 +309,23 @@ def decode_raw_predictions(preds: torch.Tensor, anchors: torch.Tensor,
     return boxes, torch.sigmoid(preds[..., 4 * reg_max:])
 
 
+def serve_pipeline(model: YoloModel, images: torch.Tensor, reg_max: int,
+                   *, conf_thres: float, iou_thres: float, max_det: int,
+                   top_k: int, merge: bool,
+                   class_filter: Optional[Tuple[int, ...]],
+                   multi_label: bool) -> NMSResult:
+    """The body of :meth:`Detector.serve` on a preprocessed NHWC batch:
+    forward → DFL decode → class-aware batched NMS. ``serve`` runs it under
+    ``inference_mode``; ``export.export_serving`` traces it."""
+    preds, anchors, strides = model(images)
+    boxes, scores = decode_raw_predictions(preds, anchors, strides, reg_max)
+    return batched_nms(boxes, scores.amax(-1), scores.argmax(-1),
+                       conf_thres=conf_thres, iou_thres=iou_thres,
+                       max_det=max_det, top_k=top_k, merge=merge,
+                       class_filter=class_filter, multi_label=multi_label,
+                       all_scores=scores if multi_label else None)
+
+
 def _has_key(tree: Mapping[str, Any], name: str) -> bool:
     return any(key == name or (isinstance(value, Mapping)
                                and _has_key(value, name))
@@ -613,12 +630,8 @@ class Detector:
         images = torch.as_tensor(images).to(self.device)
         if device_preprocess:
             images = normalize_uint8(images, self._mean, self._std)
-        preds, anchors, strides = self.model(images)
-        boxes, scores = decode_raw_predictions(preds, anchors, strides,
-                                               self.reg_max)
-        return batched_nms(boxes, scores.amax(-1), scores.argmax(-1),
-                           conf_thres=conf_thres, iou_thres=iou_thres,
-                           max_det=max_det, top_k=top_k, merge=merge,
-                           class_filter=class_filter,
-                           multi_label=multi_label,
-                           all_scores=scores if multi_label else None)
+        return serve_pipeline(self.model, images, self.reg_max,
+                              conf_thres=conf_thres, iou_thres=iou_thres,
+                              max_det=max_det, top_k=top_k, merge=merge,
+                              class_filter=class_filter,
+                              multi_label=multi_label)

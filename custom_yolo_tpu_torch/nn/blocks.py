@@ -268,12 +268,13 @@ class SPPF(nn.Module):
     """1×1 reduce, three chained 5×5 stride-1 max-pools (−inf borders),
     4-way concat, 1×1 out.
 
-    The pooling pyramid has one route per device: a CUDA tensor that needs
-    no gradient goes to the fused kernel
-    (:func:`ops.sppf_kernel.sppf_pyramid`, bit-exact), a CPU tensor or a
-    training forward to the ``max_pool2d`` chain, which autograd
-    differentiates (the kernel defines no gradient). The kernel pools 5×5
-    windows only, so no other ``k`` is built."""
+    The pooling pyramid has one route per forward: one that needs no
+    gradient goes to the registered op
+    (:func:`ops.sppf_kernel.sppf_pyramid`: the fused kernel on a CUDA
+    tensor, bit-exact, its twin on a CPU tensor), a training forward to
+    the ``max_pool2d`` chain, which autograd differentiates (the kernel
+    defines no gradient). The kernel pools 5×5 windows only, so no other
+    ``k`` is built."""
 
     def __init__(self, c_in: int, out_ch: int, k: int = 5,
                  fused: bool = False, quantized: bool = False):
@@ -287,8 +288,7 @@ class SPPF(nn.Module):
 
     def forward(self, x):
         x = self.cv1(x)
-        needs_grad = torch.is_grad_enabled() and x.requires_grad
-        if x.device.type == "cpu" or needs_grad:
+        if torch.is_grad_enabled() and x.requires_grad:
             return self.cv2(sppf_pyramid_reference(x, self.k))
         return self.cv2(sppf_pyramid(
             x.contiguous(memory_format=torch.channels_last)))

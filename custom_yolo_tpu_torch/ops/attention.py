@@ -1,5 +1,8 @@
-"""PSA attention, differentiable: the CUDA kernels' wrappers, their plain
-twins, and the ``torch.autograd.Function`` that joins them.
+"""PSA attention, differentiable: the CUDA kernels' wrappers and their
+plain twins. The forward is a registered op
+(``torch.ops.custom_yolo_tpu_torch.psa_attention_fwd``) whose autograd
+formula is the backward wrapper, so ``torch.export`` keeps it whole and
+training reaches both kernels.
 
 Counterpart of ``custom_yolo_tpu/ops/pallas/attention_kernel.py``
 (``psa_attention`` with its custom VJP, ``psa_attention_pallas``,
@@ -25,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from custom_yolo_tpu_torch.ops.cuda import build
+from custom_yolo_tpu_torch.ops.cuda import OPS, build
 
 
 def psa_attention_reference(qkv: torch.Tensor, num_heads: int, dim_key: int,
@@ -94,12 +97,23 @@ def _check_cuda_qkv(name: str, qkv: torch.Tensor, num_heads: int,
         raise ValueError(f"{name}: qkv must be contiguous")
 
 
+@torch.library.custom_op(f"{OPS}::psa_attention_fwd", mutates_args=(),
+                         device_types="cpu")
 def psa_attention_fwd(qkv: torch.Tensor, num_heads: int, dim_key: int,
                       dim_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PSA attention forward without a graph: the twin for a CPU tensor,
-    the CUDA kernel (``ops/cuda/csrc/attention.cu``) for a CUDA tensor."""
-    if qkv.device.type == "cpu":
-        return psa_attention_reference(qkv, num_heads, dim_key, dim_head)
+    """PSA attention forward as a registered op (K1): the twin for a CPU
+    tensor, the CUDA kernel (``ops/cuda/csrc/attention.cu``) for a CUDA
+    tensor, whose launch it counts. ``torch.export`` keeps the op whole."""
+    out, v = psa_attention_reference(qkv, num_heads, dim_key, dim_head)
+    # an op's outputs may not alias its input, and the twin's v is a view
+    # of qkv where there is one head
+    return out, v.clone()
+
+
+@psa_attention_fwd.register_kernel("cuda")
+def _psa_attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, dim_key: int,
+                            dim_head: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_qkv("psa_attention", qkv, num_heads, dim_key, dim_head)
     b, t, _ = qkv.shape
     lib = build.load("attention")
@@ -119,6 +133,13 @@ def psa_attention_fwd(qkv: torch.Tensor, num_heads: int, dim_key: int,
                   int(qkv.dtype == torch.bfloat16)), qkv.device)
     psa_attention.launches += 1
     return out, v
+
+
+@psa_attention_fwd.register_fake
+def _psa_attention_fwd_fake(qkv, num_heads, dim_key, dim_head):
+    b, t, _ = qkv.shape
+    out = qkv.new_empty(b, t, num_heads * dim_head)
+    return out, torch.empty_like(out)
 
 
 def psa_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, dv: torch.Tensor,
@@ -165,31 +186,35 @@ def psa_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, dv: torch.Tensor,
     return dqkv
 
 
-class PSAAttentionFunction(torch.autograd.Function):
-    """``qkv → (out, v)`` with the hand-written backward. Saves only
-    ``qkv``; the backward recomputes the softmax from it. Both cotangents
-    are consumed (``v`` feeds the positional depthwise conv); autograd
-    hands an unused output's cotangent over as zeros."""
+def _save_qkv(ctx, inputs, output):
+    qkv, num_heads, dim_key, dim_head = inputs
+    ctx.save_for_backward(qkv)
+    ctx.dims = (num_heads, dim_key, dim_head)
 
-    @staticmethod
-    def forward(ctx, qkv, num_heads, dim_key, dim_head):
-        ctx.save_for_backward(qkv)
-        ctx.dims = (num_heads, dim_key, dim_head)
-        return psa_attention_fwd(qkv, num_heads, dim_key, dim_head)
 
-    @staticmethod
-    def backward(ctx, dout, dv):
-        (qkv,) = ctx.saved_tensors
-        dqkv = psa_attention_bwd(qkv, dout.contiguous(), dv.contiguous(),
-                                 *ctx.dims)
-        return dqkv, None, None, None
+def _psa_attention_backward(ctx, dout, dv):
+    """K4 (:func:`psa_attention_bwd`) from the saved ``qkv`` alone; the
+    softmax is recomputed. Both cotangents are consumed (``v`` feeds the
+    positional depthwise conv); autograd hands an unused output's
+    cotangent over as zeros."""
+    (qkv,) = ctx.saved_tensors
+    dqkv = psa_attention_bwd(qkv, dout.contiguous(), dv.contiguous(),
+                             *ctx.dims)
+    return dqkv, None, None, None
+
+
+psa_attention_fwd.register_autograd(_psa_attention_backward,
+                                    setup_context=_save_qkv)
 
 
 def psa_attention(qkv: torch.Tensor, num_heads: int, dim_key: int,
                   dim_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable PSA attention (:class:`PSAAttentionFunction`): the
-    kernels on a CUDA tensor, the twins on a CPU tensor."""
-    return PSAAttentionFunction.apply(qkv, num_heads, dim_key, dim_head)
+    """Differentiable PSA attention: the registered forward op
+    (:func:`psa_attention_fwd`, K1) with the hand-written backward (K4),
+    the kernels on a CUDA tensor, the twins on a CPU tensor."""
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"psa_attention: unsupported device {qkv.device}")
+    return psa_attention_fwd(qkv, num_heads, dim_key, dim_head)
 
 
 # kernel launches: the forward's on psa_attention, the backward's on

@@ -1,0 +1,5 @@
+"""The hand-written CUDA kernels (``csrc/``), their build (``build.py``)
+and the namespace of the ``torch.library`` ops that wrap the serving
+kernels (``torch.ops.custom_yolo_tpu_torch.*``)."""
+
+OPS = "custom_yolo_tpu_torch"

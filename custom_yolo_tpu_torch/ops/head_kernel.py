@@ -11,7 +11,10 @@ memory (NHWC physically); the logits come back as ``(B, nc, H, W)`` in the
 same format and dtype. Weights come as in the JAX function, each a
 ``(kernel, bias)`` pair in ``x``'s dtype: depthwise kernels ``(3, 3, C)``,
 pointwise kernels ``(C_in, C_out)``, the logits' kernel ``(C_mid, nc)``.
-Inference only: no gradient is defined, as for the TPU kernel.
+Inference only: no gradient is defined, as for the TPU kernel. The stage
+is a registered op (``torch.ops.custom_yolo_tpu_torch.cls_stage``, the
+``(kernel, bias)`` pairs as tensor arguments), which ``torch.export``
+keeps whole.
 
 Rounding points, the same in the kernel and the twin: the nine depthwise
 taps are accumulated in fp32, the bias added and SiLU applied in fp32, and
@@ -25,12 +28,12 @@ between each conv and its SiLU.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from custom_yolo_tpu_torch.ops.cuda import build
+from custom_yolo_tpu_torch.ops.cuda import OPS, build
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -40,24 +43,28 @@ IN_MULTIPLE = 32
 MID_MULTIPLE = 128
 
 
-def _stage_reference(x: torch.Tensor, dw: Pair, pw: Pair) -> torch.Tensor:
+def _stage_reference(x: torch.Tensor, dw: Pair, pw: Pair,
+                     out: Pair | None = None) -> torch.Tensor:
+    """One stage of the twin; with ``out``, the logits' 1×1 after it."""
     dtype, c = x.dtype, x.shape[1]
     y = F.conv2d(x.float(), dw[0].float().permute(2, 0, 1)[:, None],
                  dw[1].float(), padding=1, groups=c)
     y = F.silu(y).to(dtype)
     z = F.conv2d(y.float(), pw[0].float().t()[:, :, None, None],
                  pw[1].float())
-    return F.silu(z).to(dtype)
+    z = F.silu(z).to(dtype)
+    if out is None:
+        return z
+    logits = F.conv2d(z.float(), out[0].float().t()[:, :, None, None],
+                      out[1].float())
+    return logits.to(dtype)
 
 
 def cls_tower_reference(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair,
                         pw2: Pair, out: Pair) -> torch.Tensor:
     """Plain PyTorch twin: the conv chain in fp32, rounded to ``x``'s dtype
     at the kernel's rounding points."""
-    z = _stage_reference(_stage_reference(x, dw1, pw1), dw2, pw2)
-    logits = F.conv2d(z.float(), out[0].float().t()[:, :, None, None],
-                      out[1].float())
-    return logits.to(x.dtype)
+    return _stage_reference(_stage_reference(x, dw1, pw1), dw2, pw2, out)
 
 
 def _padded(kernel: torch.Tensor) -> torch.Tensor:
@@ -69,31 +76,80 @@ def _padded(kernel: torch.Tensor) -> torch.Tensor:
     return F.pad(kernel, (0, -kernel.shape[1] % 8))
 
 
-def _stage(x: torch.Tensor, dw: Pair, pw: Pair, out: Pair | None
-           ) -> torch.Tensor:
+@torch.library.custom_op(f"{OPS}::cls_stage", mutates_args=(),
+                         device_types="cpu")
+def cls_stage(x: torch.Tensor, dw_kernel: torch.Tensor, dw_bias: torch.Tensor,
+              pw_kernel: torch.Tensor, pw_bias: torch.Tensor,
+              out_kernel: Optional[torch.Tensor],
+              out_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One stage of the tower as a registered op (K6): dw3×3 → pw1×1, then
+    the logits' 1×1 where ``out_kernel``/``out_bias`` are given. The twin
+    for CPU tensors; one launch of the stage kernel for CUDA tensors."""
+    return _stage_reference(x, (dw_kernel, dw_bias), (pw_kernel, pw_bias),
+                            None if out_kernel is None
+                            else (out_kernel, out_bias))
+
+
+@cls_stage.register_kernel("cuda")
+def _cls_stage_cuda(x: torch.Tensor, dw_kernel: torch.Tensor,
+                    dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
+                    pw_bias: torch.Tensor, out_kernel: Optional[torch.Tensor],
+                    out_bias: Optional[torch.Tensor]) -> torch.Tensor:
     b, c, h, w = x.shape
-    m = pw[0].shape[1]
-    nc = out[1].shape[0] if out is not None else m
+    m = pw_kernel.shape[1]
+    has_out = out_kernel is not None
+    aligned = [x, dw_kernel, dw_bias, pw_kernel, pw_bias]
+    if has_out and x.dtype == torch.bfloat16:
+        aligned.append(out_kernel)
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError("cls_tower: x and the depthwise, 1x1 and (bf16) "
+                         "logits' kernels must start on a 16-byte boundary "
+                         "(the kernels load 16 bytes at a time)")
+    lib = build.load("head")
+    need = build.query(lib, "cls_stage_smem_bytes", [ctypes.c_int] * 2,
+                       ctypes.c_longlong, m, x.element_size())
+    if need > build.SMEM_LIMIT:
+        raise ValueError(
+            f"cls_tower: {m} middle channels need {need} bytes of shared "
+            f"memory (an 8x8 tile of all of them waits there for the "
+            f"logits); the limit is {build.SMEM_LIMIT}")
+    outk, outb = (out_kernel, out_bias) if has_out else (pw_kernel, pw_bias)
+    nc = outb.shape[0]
     result = torch.empty((b, nc, h, w), dtype=x.dtype, device=x.device,
                          memory_format=torch.channels_last)
-    outk, outb = out if out is not None else pw
-    build.launch(build.load("head"), "cls_stage",
+    build.launch(lib, "cls_stage",
                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9,
-                 (x.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(),
-                  pw[0].data_ptr(), pw[1].data_ptr(), outk.data_ptr(),
+                 (x.data_ptr(), dw_kernel.data_ptr(), dw_bias.data_ptr(),
+                  pw_kernel.data_ptr(), pw_bias.data_ptr(), outk.data_ptr(),
                   outb.data_ptr(), result.data_ptr(), b, h, w, c, m, nc,
-                  outk.shape[1], int(out is not None), x.element_size()),
+                  outk.shape[1], int(has_out), x.element_size()),
                  x.device)
     cls_tower.launches += 1
     return result
 
 
+@cls_stage.register_fake
+def _cls_stage_fake(x, dw_kernel, dw_bias, pw_kernel, pw_bias, out_kernel,
+                    out_bias):
+    b, _, h, w = x.shape
+    nc = (out_bias if out_bias is not None else pw_bias).shape[0]
+    return torch.empty((b, nc, h, w), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def _stage(x: torch.Tensor, dw: Pair, pw: Pair, out: Pair | None
+           ) -> torch.Tensor:
+    return cls_stage(x, *dw, *pw, *(out if out is not None else (None,
+                                                                  None)))
+
+
 def cls_tower(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair, pw2: Pair,
               out: Pair) -> torch.Tensor:
-    """The fused cls tower: the twin for CPU tensors, two launches of the
-    CUDA stage kernel (``ops/cuda/csrc/head.cu``) for CUDA tensors."""
+    """The fused cls tower, two calls of the stage op :func:`cls_stage`:
+    the twin for CPU tensors, two launches of the CUDA stage kernel
+    (``ops/cuda/csrc/head.cu``) for CUDA tensors."""
     if x.device.type == "cpu":
-        return cls_tower_reference(x, dw1, pw1, dw2, pw2, out)
+        return _stage(_stage(x, dw1, pw1, None), dw2, pw2, out)
     if x.device.type != "cuda":
         raise ValueError(f"cls_tower: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -120,14 +176,6 @@ def cls_tower(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair, pw2: Pair,
                     f"cls_tower: {name} {tuple(tensor.shape)} {tensor.dtype} "
                     f"on {tensor.device}; want contiguous {shape} {x.dtype} "
                     f"on {x.device}")
-    aligned = [x, *dw1, *pw1, *dw2, *pw2]
-    if x.dtype == torch.bfloat16:
-        out = (_padded(out[0]), out[1])
-        aligned.append(out[0])
-    if any(t.data_ptr() % 16 for t in aligned):
-        raise ValueError("cls_tower: x and the depthwise, 1x1 and (bf16) "
-                         "logits' kernels must start on a 16-byte boundary "
-                         "(the kernels load 16 bytes at a time)")
     if c % IN_MULTIPLE or mid % MID_MULTIPLE:
         raise ValueError(
             f"cls_tower: {c} input and {mid} middle channels; the kernel "
@@ -136,16 +184,9 @@ def cls_tower(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair, pw2: Pair,
         return torch.empty((x.shape[0], nc, *x.shape[2:]), dtype=x.dtype,
                            device=x.device,
                            memory_format=torch.channels_last)
-    need = build.query(build.load("head"), "cls_stage_smem_bytes",
-                       [ctypes.c_int] * 2, ctypes.c_longlong, mid,
-                       x.element_size())
-    if need > build.SMEM_LIMIT:
-        raise ValueError(
-            f"cls_tower: {mid} middle channels need {need} bytes of shared "
-            f"memory (an 8x8 tile of all of them waits there for the "
-            f"logits); the limit is {build.SMEM_LIMIT}")
-    z = _stage(x, dw1, pw1, None)
-    return _stage(z, dw2, pw2, out)
+    if x.dtype == torch.bfloat16:
+        out = (_padded(out[0]), out[1])
+    return _stage(_stage(x, dw1, pw1, None), dw2, pw2, out)
 
 
 # one per launch of the stage kernel: two per call of cls_tower

@@ -7,7 +7,9 @@ Boxes ``(N, K, 4)`` xyxy, score-sorted and class-offset; ``valid (N, K)``
 bool → ``keep (N, K)`` bool, the exact sequential greedy keep-set, for
 any pool size K. :func:`nms_keep` sends one image to
 :func:`nms_keep_single` and a batch to :func:`nms_keep_batched`; both
-launch the same kernels and give the same keep-set as the twin.
+launch the same kernels and give the same keep-set as the twin. Both are
+registered ops (``torch.ops.custom_yolo_tpu_torch.nms_keep_*``), so
+``torch.export`` keeps each whole instead of unrolling the twin's sweep.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import ctypes
 import torch
 
 from custom_yolo_tpu_torch.ops.boxes import box_iou_pairwise
-from custom_yolo_tpu_torch.ops.cuda import build
+from custom_yolo_tpu_torch.ops.cuda import OPS, build
 
 
 def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
@@ -86,30 +88,69 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
-                     iou_thres: float) -> torch.Tensor:
-    """The keep masks of a batch of images (``nms_keep_bitmask`` of
-    ``ops/cuda/csrc/nms.cu``): the twin for CPU tensors, the kernels for
-    CUDA tensors."""
-    if boxes.device.type == "cpu":
-        return nms_keep_reference(boxes, valid, iou_thres)
+@torch.library.custom_op(f"{OPS}::nms_keep_batched", mutates_args=(),
+                         device_types="cpu")
+def _nms_keep_batched_op(boxes: torch.Tensor, valid: torch.Tensor,
+                         iou_thres: float) -> torch.Tensor:
+    return nms_keep_reference(boxes, valid, iou_thres)
+
+
+@torch.library.custom_op(f"{OPS}::nms_keep_single", mutates_args=(),
+                         device_types="cpu")
+def _nms_keep_single_op(boxes: torch.Tensor, valid: torch.Tensor,
+                        iou_thres: float) -> torch.Tensor:
+    return nms_keep_reference(boxes, valid, iou_thres)
+
+
+@_nms_keep_batched_op.register_kernel("cuda")
+def _nms_keep_batched_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                           iou_thres: float) -> torch.Tensor:
     keep = _launch(boxes, valid, iou_thres)
     if keep.numel():
         nms_keep_batched.launches += 1
     return keep
 
 
-def nms_keep_single(boxes: torch.Tensor, valid: torch.Tensor,
-                    iou_thres: float) -> torch.Tensor:
-    """The keep mask of the one image of a request, by the same kernels as
-    :func:`nms_keep_batched` (counted apart, so a run shows which path
-    took them): the twin for CPU tensors, the kernels for CUDA tensors."""
-    if boxes.device.type == "cpu":
-        return nms_keep_reference(boxes, valid, iou_thres)
+@_nms_keep_single_op.register_kernel("cuda")
+def _nms_keep_single_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                          iou_thres: float) -> torch.Tensor:
     keep = _launch(boxes, valid, iou_thres)
     if keep.numel():
         nms_keep_single.launches += 1
     return keep
+
+
+@_nms_keep_batched_op.register_fake
+@_nms_keep_single_op.register_fake
+def _nms_keep_fake(boxes, valid, iou_thres):
+    return torch.empty_like(valid)
+
+
+def _refuse_other_devices(boxes: torch.Tensor, valid: torch.Tensor) -> None:
+    """A CPU pool takes the twin; any other must lie on one CUDA device
+    (a meta tensor would reach the ops' fake implementation)."""
+    if boxes.device.type != "cpu" and not _on_one_cuda_device(boxes, valid):
+        raise ValueError(f"nms_keep: boxes on {boxes.device} and valid on "
+                         f"{valid.device}; both must be on one CUDA device")
+
+
+def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
+                     iou_thres: float) -> torch.Tensor:
+    """The keep masks of a batch of images through the registered op
+    ``nms_keep_batched``: the twin for CPU tensors, the kernels
+    (``nms_keep_bitmask`` of ``ops/cuda/csrc/nms.cu``) for CUDA tensors."""
+    _refuse_other_devices(boxes, valid)
+    return _nms_keep_batched_op(boxes, valid, iou_thres)
+
+
+def nms_keep_single(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_thres: float) -> torch.Tensor:
+    """The keep mask of the one image of a request through the registered
+    op ``nms_keep_single``: the same kernels as :func:`nms_keep_batched`,
+    counted apart, so a run shows which path took them; the twin for CPU
+    tensors."""
+    _refuse_other_devices(boxes, valid)
+    return _nms_keep_single_op(boxes, valid, iou_thres)
 
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,

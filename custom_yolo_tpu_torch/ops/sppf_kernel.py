@@ -6,7 +6,9 @@ axis, ``p`` the 5×5 stride-1 max-pool with −inf borders. The tensor is the
 port's NCHW ``(B, C, H, W)`` in ``channels_last`` memory — NHWC physically,
 which is what the TPU kernel reads — and the result is ``(B, 4C, H, W)``
 in the same format and dtype. Inference only: no gradient is defined, as
-for the TPU kernel.
+for the TPU kernel. The kernel is a registered op
+(``torch.ops.custom_yolo_tpu_torch.sppf_pyramid``), which ``torch.export``
+keeps whole.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from custom_yolo_tpu_torch.ops.cuda import build
+from custom_yolo_tpu_torch.ops.cuda import OPS, build
 
 # the widest tile side, and the vectors of channels a block takes, widest
 # first; the kernel's shared-memory budget and halo; the blocks wanted for
@@ -102,11 +104,29 @@ def sppf_pyramid_reference(x: torch.Tensor, k: int = 5) -> torch.Tensor:
 
 
 def sppf_pyramid(x: torch.Tensor) -> torch.Tensor:
-    """The pooling pyramid: the twin for CPU tensors, the CUDA kernel
-    (``ops/cuda/csrc/sppf.cu``) for CUDA tensors, at any map size: the
-    kernel works on tiles of at most 16 × 16 pixels with a halo of 6."""
-    if x.device.type == "cpu":
-        return sppf_pyramid_reference(x)
+    """The pooling pyramid (the registered op :func:`sppf_pyramid_op`):
+    the twin for CPU tensors, the CUDA kernel (``ops/cuda/csrc/sppf.cu``)
+    for CUDA tensors, at any map size: the kernel works on tiles of at
+    most 16 × 16 pixels with a halo of 6. Inference only."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sppf_pyramid: unsupported device {x.device}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("sppf_pyramid: the kernel defines no gradient; "
+                         "training takes the max_pool2d chain")
+    return sppf_pyramid_op(x)
+
+
+@torch.library.custom_op(f"{OPS}::sppf_pyramid", mutates_args=(),
+                         device_types="cpu")
+def sppf_pyramid_op(x: torch.Tensor) -> torch.Tensor:
+    """K5 as a registered op; its CPU implementation is the twin, in the
+    kernel's ``channels_last`` layout."""
+    return sppf_pyramid_reference(x).contiguous(
+        memory_format=torch.channels_last)
+
+
+@sppf_pyramid_op.register_kernel("cuda")
+def _sppf_pyramid_cuda(x: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(x):
         raise ValueError(f"sppf_pyramid: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -115,9 +135,6 @@ def sppf_pyramid(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 4:
         raise ValueError(f"sppf_pyramid: x {tuple(x.shape)}; want "
                          "(B, C, H, W)")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise ValueError("sppf_pyramid: the kernel defines no gradient; "
-                         "training takes the max_pool2d chain")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("sppf_pyramid: x must be contiguous in "
                          "channels_last memory (NHWC)")
@@ -136,6 +153,13 @@ def sppf_pyramid(x: torch.Tensor) -> torch.Tensor:
                   x.element_size(), vec, th, tw, cvb), x.device)
     sppf_pyramid.launches += 1
     return out
+
+
+@sppf_pyramid_op.register_fake
+def _sppf_pyramid_fake(x):
+    b, c, h, w = x.shape
+    return torch.empty((b, 4 * c, h, w), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
 
 
 sppf_pyramid.launches = 0

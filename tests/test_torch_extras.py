@@ -112,19 +112,24 @@ def test_sppf_propagates_nan_like_the_jax_kernel():
 
 
 def test_sppf_module_routes_by_device_and_gradient(monkeypatch):
-    """On the CPU and in a training forward the module keeps the
-    ``max_pool2d`` chain, which autograd differentiates."""
+    """A training forward keeps the ``max_pool2d`` chain, which autograd
+    differentiates; a forward without gradient takes the registered op on
+    any device (its twin on the CPU), so that an exported graph holds
+    it."""
     calls = []
     monkeypatch.setattr("custom_yolo_tpu_torch.nn.blocks.sppf_pyramid",
-                        lambda x: calls.append(x) or x)
+                        lambda x: calls.append(x)
+                        or sppf_kernel.sppf_pyramid(x))
     block = SPPF(8, 8)
     x = torch.from_numpy(
         np.random.RandomState(6).randn(2, 8, 6, 6).astype(np.float32))
     block(x).sum().backward()
     assert block.cv1.conv.weight.grad.abs().max() > 0
+    assert calls == []
     with torch.no_grad():
         block.eval()(x)
-    assert calls == []
+    assert len(calls) == 1
+    assert calls[0].is_contiguous(memory_format=torch.channels_last)
 
 
 def test_sppf_module_builds_only_the_kernels_window():

@@ -205,9 +205,10 @@ def test_nms_wrappers_pass_any_pool_size_to_the_kernel(fake_cuda,
     """K = 10240 (the x preset's 8400 anchors with multi-label candidates
     and ``top_k=10000`` rounds past it) reaches ``nms_keep_bitmask`` with
     a scratch of the bit matrix, its diagonal's column words and the
-    removed words, and is counted.
-    Meta tensors stand in for CUDA ones; only the device test of the
-    wrapper's check is patched."""
+    removed words, and is counted. The op's CUDA implementation is called
+    directly (a meta tensor dispatches to the op's fake implementation):
+    meta tensors stand in for CUDA ones, and only the device test of its
+    check is patched."""
     lib = fake_cuda.lib = FakeLibrary(status=0)
     lib.nms_keep_bitmask = FakeFunction(lib, 0)
     monkeypatch.setattr(build, "load", lambda name: lib)
@@ -222,7 +223,7 @@ def test_nms_wrappers_pass_any_pool_size_to_the_kernel(fake_cuda,
     k, words = 10240, 160
     boxes = empty(n, k, 4, device="meta")
     valid = empty(n, k, dtype=torch.bool, device="meta")
-    keep = fn(boxes, valid, 0.45)
+    keep = getattr(nms_kernel, f"_{wrapper}_cuda")(boxes, valid, 0.45)
     assert keep.shape == (n, k) and keep.dtype == torch.bool
     [(args, dev)] = lib.nms_keep_bitmask.calls
     assert args[4:] == (n, k, 0.45, nms_kernel.SHARED_REMOVED_WORDS, 4000)
@@ -245,9 +246,10 @@ def test_sppf_wrapper_passes_any_map_size_to_the_kernel(fake_cuda,
                                                         dtype):
     """Maps whose two copies exceeded a block's shared memory (the old
     kernel's limit, 2·H·W·size·8 > 232,448 bytes) reach ``sppf_pyramid``
-    as tiles of at most 16 × 16 pixels within 48 KB, and are counted.
-    Meta tensors stand in for CUDA ones; only the wrapper's device test
-    and its reading of the card's SM count are patched."""
+    as tiles of at most 16 × 16 pixels within 48 KB, and are counted. The
+    op's CUDA implementation is called directly: meta tensors stand in for
+    CUDA ones; only its device test and its reading of the card's SM count
+    are patched."""
     lib = fake_cuda.lib = FakeLibrary(status=0)
     lib.sppf_pyramid = FakeFunction(lib, 0)
     monkeypatch.setattr(build, "load", lambda name: lib)
@@ -257,7 +259,7 @@ def test_sppf_wrapper_passes_any_map_size_to_the_kernel(fake_cuda,
     b, c, h, w = shape
     x = torch.empty(shape, dtype=dtype, device="meta",
                     memory_format=torch.channels_last)
-    out = sppf_kernel.sppf_pyramid(x)
+    out = sppf_kernel._sppf_pyramid_cuda(x)
     assert out.shape == (b, 4 * c, h, w) and out.dtype == dtype
     assert out.is_contiguous(memory_format=torch.channels_last)
     [(args, dev)] = lib.sppf_pyramid.calls
