@@ -28,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from custom_yolo_tpu_torch.ops.cuda import OPS, build
+from custom_yolo_tpu_torch.ops.cuda import LIB, OPS, build, define
 
 
 def psa_attention_reference(qkv: torch.Tensor, num_heads: int, dim_key: int,
@@ -97,20 +97,15 @@ def _check_cuda_qkv(name: str, qkv: torch.Tensor, num_heads: int,
         raise ValueError(f"{name}: qkv must be contiguous")
 
 
-@torch.library.custom_op(f"{OPS}::psa_attention_fwd", mutates_args=(),
-                         device_types="cpu")
-def psa_attention_fwd(qkv: torch.Tensor, num_heads: int, dim_key: int,
-                      dim_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PSA attention forward as a registered op (K1): the twin for a CPU
-    tensor, the CUDA kernel (``ops/cuda/csrc/attention.cu``) for a CUDA
-    tensor, whose launch it counts. ``torch.export`` keeps the op whole."""
+def _psa_attention_fwd_cpu(qkv: torch.Tensor, num_heads: int, dim_key: int,
+                           dim_head: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     out, v = psa_attention_reference(qkv, num_heads, dim_key, dim_head)
     # an op's outputs may not alias its input, and the twin's v is a view
     # of qkv where there is one head
     return out, v.clone()
 
 
-@psa_attention_fwd.register_kernel("cuda")
 def _psa_attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, dim_key: int,
                             dim_head: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,11 +130,24 @@ def _psa_attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, dim_key: int,
     return out, v
 
 
-@psa_attention_fwd.register_fake
 def _psa_attention_fwd_fake(qkv, num_heads, dim_key, dim_head):
     b, t, _ = qkv.shape
     out = qkv.new_empty(b, t, num_heads * dim_head)
     return out, torch.empty_like(out)
+
+
+_psa_attention_fwd_op = define(
+    "psa_attention_fwd(Tensor qkv, int num_heads, int dim_key, "
+    "int dim_head) -> (Tensor, Tensor)",
+    _psa_attention_fwd_cpu, _psa_attention_fwd_cuda, _psa_attention_fwd_fake)
+
+
+def psa_attention_fwd(qkv: torch.Tensor, num_heads: int, dim_key: int,
+                      dim_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PSA attention forward, the registered op (K1): the twin for a CPU
+    tensor, the CUDA kernel (``ops/cuda/csrc/attention.cu``) for a CUDA
+    tensor, whose launch it counts. ``torch.export`` keeps the op whole."""
+    return _psa_attention_fwd_op(qkv, num_heads, dim_key, dim_head)
 
 
 def psa_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, dv: torch.Tensor,
@@ -203,8 +211,9 @@ def _psa_attention_backward(ctx, dout, dv):
     return dqkv, None, None, None
 
 
-psa_attention_fwd.register_autograd(_psa_attention_backward,
-                                    setup_context=_save_qkv)
+torch.library.register_autograd(f"{OPS}::psa_attention_fwd",
+                                _psa_attention_backward,
+                                setup_context=_save_qkv, lib=LIB)
 
 
 def psa_attention(qkv: torch.Tensor, num_heads: int, dim_key: int,
@@ -214,7 +223,7 @@ def psa_attention(qkv: torch.Tensor, num_heads: int, dim_key: int,
     the kernels on a CUDA tensor, the twins on a CPU tensor."""
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"psa_attention: unsupported device {qkv.device}")
-    return psa_attention_fwd(qkv, num_heads, dim_key, dim_head)
+    return _psa_attention_fwd_op(qkv, num_heads, dim_key, dim_head)
 
 
 # kernel launches: the forward's on psa_attention, the backward's on

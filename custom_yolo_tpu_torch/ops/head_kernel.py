@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from custom_yolo_tpu_torch.ops.cuda import OPS, build
+from custom_yolo_tpu_torch.ops.cuda import build, define
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -76,21 +76,15 @@ def _padded(kernel: torch.Tensor) -> torch.Tensor:
     return F.pad(kernel, (0, -kernel.shape[1] % 8))
 
 
-@torch.library.custom_op(f"{OPS}::cls_stage", mutates_args=(),
-                         device_types="cpu")
-def cls_stage(x: torch.Tensor, dw_kernel: torch.Tensor, dw_bias: torch.Tensor,
-              pw_kernel: torch.Tensor, pw_bias: torch.Tensor,
-              out_kernel: Optional[torch.Tensor],
-              out_bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """One stage of the tower as a registered op (K6): dw3×3 → pw1×1, then
-    the logits' 1×1 where ``out_kernel``/``out_bias`` are given. The twin
-    for CPU tensors; one launch of the stage kernel for CUDA tensors."""
+def _cls_stage_cpu(x: torch.Tensor, dw_kernel: torch.Tensor,
+                   dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
+                   pw_bias: torch.Tensor, out_kernel: Optional[torch.Tensor],
+                   out_bias: Optional[torch.Tensor]) -> torch.Tensor:
     return _stage_reference(x, (dw_kernel, dw_bias), (pw_kernel, pw_bias),
                             None if out_kernel is None
                             else (out_kernel, out_bias))
 
 
-@cls_stage.register_kernel("cuda")
 def _cls_stage_cuda(x: torch.Tensor, dw_kernel: torch.Tensor,
                     dw_bias: torch.Tensor, pw_kernel: torch.Tensor,
                     pw_bias: torch.Tensor, out_kernel: Optional[torch.Tensor],
@@ -128,7 +122,6 @@ def _cls_stage_cuda(x: torch.Tensor, dw_kernel: torch.Tensor,
     return result
 
 
-@cls_stage.register_fake
 def _cls_stage_fake(x, dw_kernel, dw_bias, pw_kernel, pw_bias, out_kernel,
                     out_bias):
     b, _, h, w = x.shape
@@ -137,15 +130,24 @@ def _cls_stage_fake(x, dw_kernel, dw_bias, pw_kernel, pw_bias, out_kernel,
                        memory_format=torch.channels_last)
 
 
+# One stage of the tower as a registered op (K6): dw3×3 → pw1×1, then the
+# logits' 1×1 where out_kernel/out_bias are given; the twin for CPU
+# tensors, one launch of the stage kernel for CUDA tensors.
+_cls_stage_op = define(
+    "cls_stage(Tensor x, Tensor dw_kernel, Tensor dw_bias, Tensor pw_kernel, "
+    "Tensor pw_bias, Tensor? out_kernel, Tensor? out_bias) -> Tensor",
+    _cls_stage_cpu, _cls_stage_cuda, _cls_stage_fake)
+
+
 def _stage(x: torch.Tensor, dw: Pair, pw: Pair, out: Pair | None
            ) -> torch.Tensor:
-    return cls_stage(x, *dw, *pw, *(out if out is not None else (None,
-                                                                  None)))
+    return _cls_stage_op(x, *dw, *pw,
+                         *(out if out is not None else (None, None)))
 
 
 def cls_tower(x: torch.Tensor, dw1: Pair, pw1: Pair, dw2: Pair, pw2: Pair,
               out: Pair) -> torch.Tensor:
-    """The fused cls tower, two calls of the stage op :func:`cls_stage`:
+    """The fused cls tower, two calls of the stage op ``cls_stage``:
     the twin for CPU tensors, two launches of the CUDA stage kernel
     (``ops/cuda/csrc/head.cu``) for CUDA tensors."""
     if x.device.type == "cpu":

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from custom_yolo_tpu_torch.ops.boxes import box_iou_pairwise
-from custom_yolo_tpu_torch.ops.cuda import OPS, build
+from custom_yolo_tpu_torch.ops.cuda import build, define
 
 
 def nms_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
@@ -88,21 +88,11 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-@torch.library.custom_op(f"{OPS}::nms_keep_batched", mutates_args=(),
-                         device_types="cpu")
-def _nms_keep_batched_op(boxes: torch.Tensor, valid: torch.Tensor,
-                         iou_thres: float) -> torch.Tensor:
+def _nms_keep_cpu(boxes: torch.Tensor, valid: torch.Tensor,
+                  iou_thres: float) -> torch.Tensor:
     return nms_keep_reference(boxes, valid, iou_thres)
 
 
-@torch.library.custom_op(f"{OPS}::nms_keep_single", mutates_args=(),
-                         device_types="cpu")
-def _nms_keep_single_op(boxes: torch.Tensor, valid: torch.Tensor,
-                        iou_thres: float) -> torch.Tensor:
-    return nms_keep_reference(boxes, valid, iou_thres)
-
-
-@_nms_keep_batched_op.register_kernel("cuda")
 def _nms_keep_batched_cuda(boxes: torch.Tensor, valid: torch.Tensor,
                            iou_thres: float) -> torch.Tensor:
     keep = _launch(boxes, valid, iou_thres)
@@ -111,7 +101,6 @@ def _nms_keep_batched_cuda(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-@_nms_keep_single_op.register_kernel("cuda")
 def _nms_keep_single_cuda(boxes: torch.Tensor, valid: torch.Tensor,
                           iou_thres: float) -> torch.Tensor:
     keep = _launch(boxes, valid, iou_thres)
@@ -120,10 +109,16 @@ def _nms_keep_single_cuda(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-@_nms_keep_batched_op.register_fake
-@_nms_keep_single_op.register_fake
 def _nms_keep_fake(boxes, valid, iou_thres):
     return torch.empty_like(valid)
+
+
+_nms_keep_batched_op = define(
+    "nms_keep_batched(Tensor boxes, Tensor valid, float iou_thres) -> Tensor",
+    _nms_keep_cpu, _nms_keep_batched_cuda, _nms_keep_fake)
+_nms_keep_single_op = define(
+    "nms_keep_single(Tensor boxes, Tensor valid, float iou_thres) -> Tensor",
+    _nms_keep_cpu, _nms_keep_single_cuda, _nms_keep_fake)
 
 
 def _refuse_other_devices(boxes: torch.Tensor, valid: torch.Tensor) -> None:

@@ -19,7 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from custom_yolo_tpu_torch.ops.cuda import OPS, build
+from custom_yolo_tpu_torch.ops.cuda import build, define
 
 # the widest tile side, and the vectors of channels a block takes, widest
 # first; the kernel's shared-memory budget and halo; the blocks wanted for
@@ -103,29 +103,12 @@ def sppf_pyramid_reference(x: torch.Tensor, k: int = 5) -> torch.Tensor:
     return torch.where((out == 0) & plus, out.abs(), out)
 
 
-def sppf_pyramid(x: torch.Tensor) -> torch.Tensor:
-    """The pooling pyramid (the registered op :func:`sppf_pyramid_op`):
-    the twin for CPU tensors, the CUDA kernel (``ops/cuda/csrc/sppf.cu``)
-    for CUDA tensors, at any map size: the kernel works on tiles of at
-    most 16 × 16 pixels with a halo of 6. Inference only."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"sppf_pyramid: unsupported device {x.device}")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise ValueError("sppf_pyramid: the kernel defines no gradient; "
-                         "training takes the max_pool2d chain")
-    return sppf_pyramid_op(x)
-
-
-@torch.library.custom_op(f"{OPS}::sppf_pyramid", mutates_args=(),
-                         device_types="cpu")
-def sppf_pyramid_op(x: torch.Tensor) -> torch.Tensor:
-    """K5 as a registered op; its CPU implementation is the twin, in the
-    kernel's ``channels_last`` layout."""
+def _sppf_pyramid_cpu(x: torch.Tensor) -> torch.Tensor:
+    # the twin, in the kernel's channels_last layout
     return sppf_pyramid_reference(x).contiguous(
         memory_format=torch.channels_last)
 
 
-@sppf_pyramid_op.register_kernel("cuda")
 def _sppf_pyramid_cuda(x: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(x):
         raise ValueError(f"sppf_pyramid: unsupported device {x.device}")
@@ -155,11 +138,28 @@ def _sppf_pyramid_cuda(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@sppf_pyramid_op.register_fake
 def _sppf_pyramid_fake(x):
     b, c, h, w = x.shape
     return torch.empty((b, 4 * c, h, w), dtype=x.dtype, device=x.device,
                        memory_format=torch.channels_last)
+
+
+_sppf_pyramid_op = define("sppf_pyramid(Tensor x) -> Tensor",
+                          _sppf_pyramid_cpu, _sppf_pyramid_cuda,
+                          _sppf_pyramid_fake)
+
+
+def sppf_pyramid(x: torch.Tensor) -> torch.Tensor:
+    """The pooling pyramid, the registered op ``sppf_pyramid`` (K5): the
+    twin for CPU tensors, the CUDA kernel (``ops/cuda/csrc/sppf.cu``) for
+    CUDA tensors, at any map size: the kernel works on tiles of at most
+    16 × 16 pixels with a halo of 6. Inference only."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sppf_pyramid: unsupported device {x.device}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("sppf_pyramid: the kernel defines no gradient; "
+                         "training takes the max_pool2d chain")
+    return _sppf_pyramid_op(x)
 
 
 sppf_pyramid.launches = 0

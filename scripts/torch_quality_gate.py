@@ -6,7 +6,7 @@ the ``n`` model's fused EMA weights and hold the artifact to
 ``Detector.serve`` on a validation batch.
 
     python scripts/torch_quality_gate.py [--models n x] [--seed S]
-        [--out DIR] [--device cuda]
+        [--out DIR]
 
 The commands it runs, in order (``--seed`` adds ``--seed S`` to both
 trainings and writes the checkpoints under ``seed_S/``):
@@ -102,13 +102,13 @@ def results_of(output: str) -> dict:
     return json.loads(lines[-1][len(RESULTS):])
 
 
-def gate(name: str, seed, out: str, device: str) -> dict:
+def gate(name: str, seed, out: str) -> dict:
     recipe = RECIPES[name]
     ckpt = recipe["checkpoint"]
     if seed is not None:
         ckpt = os.path.join(ckpt, f"seed_{seed}")
     train_args = ["--config", recipe["config"], "--mode", "single",
-                  "--device", device, "--checkpoint_dir", ckpt,
+                  "--device", "cuda", "--checkpoint_dir", ckpt,
                   *recipe["train"]]
     if seed is not None:
         train_args += ["--seed", seed]
@@ -119,7 +119,7 @@ def gate(name: str, seed, out: str, device: str) -> dict:
         ckpt, f"model_epoch_{recipe['epoch']}")
     eval_s, eval_out = run(
         "torch_evaluate.py", ["--config", recipe["config"], "--checkpoint",
-                              where, "--coco_map", "--device", device,
+                              where, "--coco_map", "--device", "cuda",
                               *recipe["evaluate"]],
         os.path.join(out, f"evaluate_{name}.log"))
     scores = results_of(eval_out)
@@ -138,8 +138,8 @@ def gate(name: str, seed, out: str, device: str) -> dict:
     return result
 
 
-def export_check(where: str, out: str, device: str) -> dict:
-    """The n model's fused EMA weights, exported at B=8 on ``device``,
+def export_check(where: str, out: str) -> dict:
+    """The n model's fused EMA weights, exported at B=8 on the card,
     called on the first 8 validation images and held to ``serve``."""
     import numpy as np
     import torch
@@ -160,7 +160,7 @@ def export_check(where: str, out: str, device: str) -> dict:
     det = Detector(cfg.model.width, cfg.model.depth, cfg.model.csp,
                    cfg.model.num_classes, reg_max=cfg.model.reg_max,
                    precision=cfg.training.sharding.precision,
-                   input_size=tuple(cfg.model.input_size), device=device)
+                   input_size=tuple(cfg.model.input_size), device="cuda")
     det.load_variables(variables)
     det.fuse()
     val_dir = cfg.data.val_images
@@ -177,8 +177,7 @@ def export_check(where: str, out: str, device: str) -> dict:
     want = det.serve(batch, **kw)
     before = kernel_launches()
     got = server(batch)
-    if device == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     after = kernel_launches()
     equal = {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
              for f in got._fields}
@@ -207,24 +206,28 @@ def main(argv=None):
                    choices=list(RECIPES))
     p.add_argument("--seed", type=int, default=None,
                    help="override project.seed of both trainings")
-    p.add_argument("--out", default="dataset_gen2/experiments/quality_gate",
+    p.add_argument("--out", default=os.path.join(
+                       REPO, "dataset_gen2/experiments/quality_gate"),
                    help="where the children's logs and the export go")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--skip_fixture", action="store_true",
                    help="reuse an existing dataset_gen2")
     args = p.parse_args(argv)
-    os.makedirs(args.out, exist_ok=True)
+    out = os.path.abspath(args.out)
+    # the recipes' configs, data and checkpoints are paths relative to the
+    # repository, for this process as for its children
+    os.chdir(REPO)
+    os.makedirs(out, exist_ok=True)
     summary = {"card": card_line(), "steps": {}}
     if not args.skip_fixture:
         summary["steps"]["fixture_s"], _ = run(
             "torch_make_fixture.py", ["--root", ROOT, "--images", 256,
                                       "--size", 640, "--seed", 2],
-            os.path.join(args.out, "fixture.log"))
+            os.path.join(out, "fixture.log"))
     for name in args.models:
-        summary[name] = gate(name, args.seed, args.out, args.device)
+        summary[name] = gate(name, args.seed, out)
         if name == "n":
             summary["export_n"] = export_check(summary["n"]["checkpoint"],
-                                               args.out, args.device)
+                                               out)
     summary["card"] = card_line()
     print(json.dumps(summary), flush=True)
 

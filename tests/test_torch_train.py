@@ -33,7 +33,7 @@ from custom_yolo_tpu.train.train_state import TrainState as JaxTrainState
 from custom_yolo_tpu.train.train_step import (
     make_eval_step as jax_make_eval_step,
     make_train_step as jax_make_train_step)
-from custom_yolo_tpu_torch import Detector
+from custom_yolo_tpu_torch import PRESETS, Detector
 from custom_yolo_tpu_torch.config import (ModelConfig, ShardingConfig,
                                           TrainingConfig)
 from custom_yolo_tpu_torch.models.detector import create_train_model
@@ -574,25 +574,39 @@ def _mid_training_state(variables, tx):
                          step=jnp.asarray(50, jnp.int32))
 
 
-@pytest.fixture(scope="module")
-def jax_model():
-    model = JaxYoloModel(WIDTH, DEPTH, CSP, NC, policy=jax_policy("float32"))
+# the layouts whole steps are held to JAX at: the small one above (C3K
+# blocks at both CSP levels, depth 2 in places) and the n preset's, which
+# the n quality recipe trains (plain bottlenecks at the first CSP level,
+# depth 1 everywhere, widths 16-256)
+LAYOUTS = {"small": (WIDTH, DEPTH, CSP),
+           "n": (PRESETS["n"]["width"], PRESETS["n"]["depth"],
+                 PRESETS["n"]["csp"])}
+
+
+def _jax_model(layout):
+    model = JaxYoloModel(*LAYOUTS[layout], NC, policy=jax_policy("float32"))
     variables = model.init(jax.random.key(0), jnp.zeros((1, HW, HW, 3)),
                            train=False)
     return model, variables
 
 
 @pytest.fixture(scope="module")
+def jax_model():
+    return _jax_model("small")
+
+
+@pytest.fixture(scope="module")
 def jax_runs(jax_model):
-    """JAX trajectories by (assigner, accumulate_steps), each computed
-    once: the states before and after every step, as numpy, and the
-    metrics of every step."""
-    model, variables = jax_model
+    """JAX trajectories by (assigner, accumulate_steps, layout), each
+    computed once: the states before and after every step, as numpy, and
+    the metrics of every step."""
     cache = {}
 
-    def run(assigner, accumulate):
-        key = (assigner, accumulate)
+    def run(assigner, accumulate, layout="small"):
+        key = (assigner, accumulate, layout)
         if key not in cache:
+            model, variables = (jax_model if layout == "small"
+                                else _jax_model(layout))
             cfg = JaxTrainingConfig(learning_rate=LR, grad_clip=1.0)
             tx = jax_optim.build_optimizer(cfg)
             loss_fn = JaxDetectionLoss(JaxLossConfig(
@@ -614,8 +628,8 @@ def jax_runs(jax_model):
     return run
 
 
-def _port_engine(assigner, accumulate, jax_state):
-    model = create_train_model(WIDTH, DEPTH, CSP, NC, precision="float32",
+def _port_engine(assigner, accumulate, jax_state, layout="small"):
+    model = create_train_model(*LAYOUTS[layout], NC, precision="float32",
                                device="cpu", seed=5)
     cfg = TrainingConfig(learning_rate=LR, grad_clip=1.0)
     optimizer = port_optim.build_optimizer(model.parameters(), cfg)
@@ -681,17 +695,18 @@ def _assert_state_matches(state: TrainState, jax_state):
     assert state.step == jax_state["step"]
 
 
-@pytest.mark.parametrize("assigner,accumulate", [
-    ("nearest", 1), ("tal", 1), ("nearest", 2)],
-    ids=["nearest", "tal", "nearest-accumulate2"])
-def test_three_train_steps_track_jax(jax_runs, assigner, accumulate):
+@pytest.mark.parametrize("assigner,accumulate,layout", [
+    ("nearest", 1, "small"), ("tal", 1, "small"), ("nearest", 2, "small"),
+    ("tal", 1, "n")],
+    ids=["nearest", "tal", "nearest-accumulate2", "tal-n-layout"])
+def test_three_train_steps_track_jax(jax_runs, assigner, accumulate, layout):
     """Three fp32 steps from a carried mid-training state, with warm-up,
-    EMA and clipping on (and once as two microbatches of two images):
-    metrics at every step and the whole state after the third within the
-    tolerances above."""
-    states_j, metrics_j, _, _ = jax_runs(assigner, accumulate)
+    EMA and clipping on (and once as two microbatches of two images, once
+    at the n preset's layout): metrics at every step and the whole state
+    after the third within the tolerances above."""
+    states_j, metrics_j, _, _ = jax_runs(assigner, accumulate, layout)
     model, optimizer, state, _, step = _port_engine(assigner, accumulate,
-                                                    states_j[0])
+                                                    states_j[0], layout)
     start = {k: v.clone() for k, v in state.variables.items()}
     for i, batch in enumerate(_batches(BATCH * accumulate)):
         state, metrics = step(state, _torch_batch(batch))
