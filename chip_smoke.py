@@ -52,10 +52,14 @@ B=8 and B=1, optimised with the fused cls tower, static int8), loads each
 artifact fresh, holds its result to ``serve`` bit for bit and counts the
 kernel launches of its calls (the ``export`` path), times it beside
 ``serve``, and imports a reference-format checkpoint of the seeded x
-model through ``scripts/torch_import_torch.py``. Any failed check ends
-the run with
-a non-zero exit. The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-card's name and power limit as ``nvidia-smi`` reports them.
+model through ``scripts/torch_import_torch.py``. Phase 12 runs the
+quality-diagnosis scripts (``scripts/torch_sweep_eval.py``,
+``scripts/torch_rank_diag.py``) as child processes on phase 9's fixture
+and checkpoint and holds the sweep's rows to ``scripts/torch_evaluate.py``
+at the same thresholds; their launch counts make the ``quality`` path.
+Any failed check ends the run with a non-zero exit. The last line is
+``{"ok": true, "device": {...}}``; the line before it is the card's name
+and power limit as ``nvidia-smi`` reports them.
 """
 
 from __future__ import annotations
@@ -1451,8 +1455,8 @@ def run_cli(script: str, args, sink=None, env=None,
 
 
 def printed_results(out: str) -> dict:
-    """The unrounded results that ``torch_evaluate.py`` prints on its
-    ``[INFO] results:`` line."""
+    """The unrounded results that ``torch_evaluate.py`` (and
+    ``torch_rank_diag.py``) print on an ``[INFO] results:`` line."""
     lines = [line[len(RESULTS_LINE):] for line in out.splitlines()
              if line.startswith(RESULTS_LINE)]
     check(len(lines) == 1, f"torch_evaluate.py printed no results: "
@@ -1701,208 +1705,267 @@ def cli_phase(env: dict, preset: dict, root: str) -> tuple:
     9e ``torch_serve.py`` over the fixture's images and a PNG, repeated to
     a few hundred, from a ``save_weights`` directory, against
     ``Detector.serve`` called here, then its warm-up, steady-state rate,
-    decode time and the card's idle share. The fixture goes under
-    ``root`` and stays there. Returns (launch counts of the CLI processes,
-    launch counts of 9d's calls in this process, numbers)."""
+    decode time and the card's idle share. The fixture and 9b's
+    checkpoint go under ``root`` and stay there. Returns (launch counts
+    of the CLI processes, launch counts of 9d's calls in this process,
+    numbers)."""
     from PIL import Image
 
     from custom_yolo_tpu_torch.utils.checkpoint import restore_variables
 
     launches = counts()
-    try:
-        # ------------------------------------------------------- 9a. ETL
-        cfg_path, numbers = cli_fixture(env, preset, root)
-        cfg = Config.from_yaml(cfg_path)
-        data = os.path.join(root, "data")
-        t0 = time.perf_counter()
-        seg_note = etl_segmentations(env, root)
-        numbers["segmentations_s"] = time.perf_counter() - t0
-        n_val = len(os.listdir(cfg.data.val_images))
-        log(f"phase 9a ETL: torch_make_fixture.py --images "
-            f"{CLI_TRAIN_IMAGES} --size {HW} --seed 2 ({CLI_TRAIN_IMAGES} "
-            f"train + {n_val} val JPEGs and their parquet) "
-            f"{numbers['fixture_s']} s, torch_data_preprocess.py --mode val "
-            f"{numbers['data_preprocess_s']} s (process start included); "
-            f"{seg_note}")
+    # ------------------------------------------------------- 9a. ETL
+    cfg_path, numbers = cli_fixture(env, preset, root)
+    cfg = Config.from_yaml(cfg_path)
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    seg_note = etl_segmentations(env, root)
+    numbers["segmentations_s"] = time.perf_counter() - t0
+    n_val = len(os.listdir(cfg.data.val_images))
+    log(f"phase 9a ETL: torch_make_fixture.py --images "
+        f"{CLI_TRAIN_IMAGES} --size {HW} --seed 2 ({CLI_TRAIN_IMAGES} "
+        f"train + {n_val} val JPEGs and their parquet) "
+        f"{numbers['fixture_s']} s, torch_data_preprocess.py --mode val "
+        f"{numbers['data_preprocess_s']} s (process start included); "
+        f"{seg_note}")
 
-        # ----------------------------------------------------- 9b. train
-        out, numbers["train_cli_s"] = run_cli(
-            "torch_train.py", ["--config", cfg_path, "--mode", "single",
-                               "--device", "cuda", "--epochs", 1], launches)
-        ckpt_epoch = os.path.join(root, "ckpt", "model_epoch_0")
-        check(os.path.exists(os.path.join(ckpt_epoch, "state.pt")),
-              "torch_train.py wrote no model_epoch_0")
-        # the epoch's record, phase 10b's single-process reference
-        records = [line.split(": ", 1)[1] for line in out.splitlines()
-                   if line.startswith("[INFO] history: ")]
-        check(len(records) == 1, "torch_train.py printed no history")
-        numbers["train_record"] = json.loads(records[0])
-        log(f"phase 9b torch_train.py --device cuda --epochs 1, x/640² bf16 "
-            f"B={TRAIN_BATCH} on the 9a fixture: "
-            f"{numbers['train_cli_s']} s, model_epoch_0 written")
+    # ----------------------------------------------------- 9b. train
+    out, numbers["train_cli_s"] = run_cli(
+        "torch_train.py", ["--config", cfg_path, "--mode", "single",
+                           "--device", "cuda", "--epochs", 1], launches)
+    ckpt_epoch = os.path.join(root, "ckpt", "model_epoch_0")
+    check(os.path.exists(os.path.join(ckpt_epoch, "state.pt")),
+          "torch_train.py wrote no model_epoch_0")
+    # the epoch's record, phase 10b's single-process reference
+    records = [line.split(": ", 1)[1] for line in out.splitlines()
+               if line.startswith("[INFO] history: ")]
+    check(len(records) == 1, "torch_train.py printed no history")
+    numbers["train_record"] = json.loads(records[0])
+    log(f"phase 9b torch_train.py --device cuda --epochs 1, x/640² bf16 "
+        f"B={TRAIN_BATCH} on the 9a fixture: "
+        f"{numbers['train_cli_s']} s, model_epoch_0 written")
 
-        # -------------------------------------------------- 9c. evaluate
-        evals = {}
-        for name, flags in (("plain", []),
-                            ("nms_coco", ["--use_nms", "--coco_map"]),
-                            ("static_int8", ["--quantize", "static",
-                                             "--calib_batches", 1])):
-            out, seconds = run_cli("torch_evaluate.py", [
-                "--config", cfg_path, "--checkpoint", ckpt_epoch,
-                "--device", "cuda"] + flags, launches)
-            res = printed_results(out)
-            values = list(res["metrics"].values()) + list(
-                (res["coco"] or {}).values())
-            check(res["images"] == n_val and all(
-                np.isfinite(v) for v in values),
-                f"evaluate {name}: {res}")
-            check("(EMA params)" in out,
-                  f"evaluate {name} did not restore the EMA: {out[-2000:]}")
-            # the loop is one cold batch of the 8 validation images: its
-            # time is start-up, not a rate
-            evals[name] = {"process_s": seconds,
-                           "cold_loop_s": res["seconds"],
-                           "metrics": res["metrics"], "coco": res["coco"]}
-        log(f"phase 9c torch_evaluate.py --device cuda on model_epoch_0 "
-            f"(EMA), x/640² bf16 B={TRAIN_BATCH}: {json.dumps(evals)}")
-        numbers["evaluate"] = evals
+    # -------------------------------------------------- 9c. evaluate
+    evals = {}
+    for name, flags in (("plain", []),
+                        ("nms_coco", ["--use_nms", "--coco_map"]),
+                        ("static_int8", ["--quantize", "static",
+                                         "--calib_batches", 1])):
+        out, seconds = run_cli("torch_evaluate.py", [
+            "--config", cfg_path, "--checkpoint", ckpt_epoch,
+            "--device", "cuda"] + flags, launches)
+        res = printed_results(out)
+        values = list(res["metrics"].values()) + list(
+            (res["coco"] or {}).values())
+        check(res["images"] == n_val and all(
+            np.isfinite(v) for v in values),
+            f"evaluate {name}: {res}")
+        check("(EMA params)" in out,
+              f"evaluate {name} did not restore the EMA: {out[-2000:]}")
+        # the loop is one cold batch of the 8 validation images: its
+        # time is start-up, not a rate
+        evals[name] = {"process_s": seconds,
+                       "cold_loop_s": res["seconds"],
+                       "metrics": res["metrics"], "coco": res["coco"]}
+    log(f"phase 9c torch_evaluate.py --device cuda on model_epoch_0 "
+        f"(EMA), x/640² bf16 B={TRAIN_BATCH}: {json.dumps(evals)}")
+    numbers["evaluate"] = evals
 
-        # the small fp32 model on the card and on the CPU, TF32 off
-        small = small_eval_cli(root, cfg_path, launches)
-        log(f"phase 9c small fp32 evaluate CLI card vs CPU (TF32 off, "
-            f"{CLI_SMALL['hw']}², --use_nms --coco_map): equal (counts "
-            f"exact, floats within 1e-6): {json.dumps(small['metrics'])}; "
-            f"mAP_50 {small['coco']['mAP_50']}")
+    # the small fp32 model on the card and on the CPU, TF32 off
+    small = small_eval_cli(root, cfg_path, launches)
+    log(f"phase 9c small fp32 evaluate CLI card vs CPU (TF32 off, "
+        f"{CLI_SMALL['hw']}², --use_nms --coco_map): equal (counts "
+        f"exact, floats within 1e-6): {json.dumps(small['metrics'])}; "
+        f"mAP_50 {small['coco']['mAP_50']}")
 
-        # -------------------------------------------- 9d. save and load
-        x = torch.from_numpy(np.random.RandomState(SEED + 51).randint(
-            0, 256, (SERVE_BATCH, HW, HW, 3), dtype=np.uint8))
-        variables, _, _ = restore_variables(os.path.join(root, "ckpt"), 0)
-        persistence = counts()
-        reset_counts()
-        for name in ("fused", "optimized", "static_int8"):
-            det = Detector(preset["width"], preset["depth"], preset["csp"],
-                           NUM_CLASSES, input_size=(HW, HW))
-            det.load_variables(variables)
-            det.fuse()
-            if name == "optimized":
-                det.optimize_for_serving()
-            if name == "static_int8":
-                det.quantize().calibrate([normalize(x.cuda())])
-            wdir = os.path.join(root, f"w_{name}")
-            det.save_weights(wdir)
-            new = Detector(preset["width"], preset["depth"], preset["csp"],
-                           NUM_CLASSES, input_size=(HW, HW))
-            new.load_weights(wdir)
-            check(new._transform_flags() == det._transform_flags(),
-                  f"9d {name}: flags {new._transform_flags()} after the "
-                  f"load, {det._transform_flags()} before")
-            want = det.serve(x, conf_thres=POOL_CONF, device_preprocess=True)
-            got = new.serve(x, conf_thres=POOL_CONF, device_preprocess=True)
-            check(all(torch.equal(a, b) for a, b in zip(got, want))
-                  and int(want.num_valid.sum()) > 0,
-                  f"9d {name}: the reloaded detector serves another result")
-            del det, new
-        torch.cuda.synchronize()
-        for name, n in read_counts().items():
-            persistence[name] += n
-        log(f"phase 9d save_weights/load_weights, x/640² bf16 B="
-            f"{SERVE_BATCH}, from model_epoch_0's EMA: fused, fused + "
-            f"optimize_for_serving and static int8 each serve bit for bit "
-            f"after the round trip; flags equal")
+    # -------------------------------------------- 9d. save and load
+    x = torch.from_numpy(np.random.RandomState(SEED + 51).randint(
+        0, 256, (SERVE_BATCH, HW, HW, 3), dtype=np.uint8))
+    variables, _, _ = restore_variables(os.path.join(root, "ckpt"), 0)
+    persistence = counts()
+    reset_counts()
+    for name in ("fused", "optimized", "static_int8"):
+        det = Detector(preset["width"], preset["depth"], preset["csp"],
+                       NUM_CLASSES, input_size=(HW, HW))
+        det.load_variables(variables)
+        det.fuse()
+        if name == "optimized":
+            det.optimize_for_serving()
+        if name == "static_int8":
+            det.quantize().calibrate([normalize(x.cuda())])
+        wdir = os.path.join(root, f"w_{name}")
+        det.save_weights(wdir)
+        new = Detector(preset["width"], preset["depth"], preset["csp"],
+                       NUM_CLASSES, input_size=(HW, HW))
+        new.load_weights(wdir)
+        check(new._transform_flags() == det._transform_flags(),
+              f"9d {name}: flags {new._transform_flags()} after the "
+              f"load, {det._transform_flags()} before")
+        want = det.serve(x, conf_thres=POOL_CONF, device_preprocess=True)
+        got = new.serve(x, conf_thres=POOL_CONF, device_preprocess=True)
+        check(all(torch.equal(a, b) for a, b in zip(got, want))
+              and int(want.num_valid.sum()) > 0,
+              f"9d {name}: the reloaded detector serves another result")
+        del det, new
+    torch.cuda.synchronize()
+    for name, n in read_counts().items():
+        persistence[name] += n
+    log(f"phase 9d save_weights/load_weights, x/640² bf16 B="
+        f"{SERVE_BATCH}, from model_epoch_0's EMA: fused, fused + "
+        f"optimize_for_serving and static int8 each serve bit for bit "
+        f"after the round trip; flags equal")
 
-        # ----------------------------------------------------- 9e. serve
-        # the fixture's 32 JPEGs and a PNG, repeated to a few hundred
-        # images so that the steady state after the first batch is timed
-        # over tens of batches
-        images = os.path.join(root, "serve_images")
-        os.makedirs(images)
-        unique = []
-        for split in ("train", "val"):
-            folder = os.path.join(data, "raw", "images", split)
-            unique += [os.path.join(folder, name)
-                       for name in sorted(os.listdir(folder))]
-        with Image.open(unique[0]) as im:
-            im.save(os.path.join(root, "frame.png"))
-        unique.append(os.path.join(root, "frame.png"))
-        for k in range(SERVE_REPEATS):
-            for src in unique:
-                shutil.copy(src, os.path.join(
-                    images, f"r{k}_{os.path.basename(src)}"))
-        paths = sorted(os.path.join(images, n) for n in os.listdir(images))
-        wdir = os.path.join(root, "w_fused")
-        serve_args = ["--images", images, "--checkpoint", wdir, "--preset",
-                      "x", "--num_classes", NUM_CLASSES, "--input_size", HW,
-                      "--batch_size", SERVE_BATCH, "--inflight", 2, "--conf",
-                      POOL_CONF, "--device", "cuda"]
-        runs = {}
-        for name, extra in (("plain", []),
-                            ("profiled", ["--profile_dir",
-                                          os.path.join(root, "prof")])):
-            out, seconds = run_cli("torch_serve.py", serve_args + [
-                "--output", os.path.join(root, f"det_{name}.json")] + extra,
-                launches)
-            m = re.search(r"(\d+) images -> (\d+) detections in ([\d.]+) s "
-                          r"\(([\d.]+) img/s", out)
-            w = re.search(r"first batch fetched after ([\d.]+) s; the other "
-                          r"(\d+) images in ([\d.]+) s \(([\d.]+) img/s\); "
-                          r"decode on the producer thread ([\d.]+) s "
-                          r"\(([\d.]+) ms/img\)", out)
-            check(m is not None and w is not None
-                  and int(m.group(1)) == len(paths),
-                  f"serve CLI {name}: {out[-2000:]}")
-            runs[name] = {
-                "process_s": seconds, "wall_s": float(m.group(3)),
-                "img_per_s_incl_warm_up": float(m.group(4)),
-                "first_batch_s": float(w.group(1)),
-                "steady_images": int(w.group(2)),
-                "steady_s": float(w.group(3)),
-                "steady_img_per_s": float(w.group(4)),
-                "decode_s": float(w.group(5)),
-                "decode_ms_per_img": float(w.group(6)),
-                "detections": int(m.group(2))}
-        decoder = re.search(r"decoder: (\w+)", out).group(1)
-        with open(os.path.join(root, "det_plain.json")) as f:
-            served = json.load(f)
-        direct = Detector(preset["width"], preset["depth"], preset["csp"],
-                          NUM_CLASSES, input_size=(HW, HW))
-        direct.load_weights(wdir)
-        want = cli_serve_direct(direct, paths, HW, SERVE_BATCH, POOL_CONF)
-        check(served == want and sum(len(r["detections"])
-                                     for r in want) > 0,
-              "serve CLI: detections.json differs from Detector.serve on "
-              "the same decoded batches")
-        del direct
-        trace_path = os.path.join(root, "prof", "trace.json")
-        idle_all, busy_all, window_all = trace_idle_share(trace_path)
-        idle, busy_ms, window_ms = trace_idle_share(
-            trace_path, after="serve_cli.first_fetch")
-        runs["profiled"].update(
-            idle_share_steady=idle, device_busy_ms_steady=busy_ms,
-            trace_window_ms_steady=window_ms, idle_share_whole=idle_all,
-            device_busy_ms_whole=busy_all, trace_window_ms_whole=window_all)
-        numbers["serve"] = dict(
-            images=len(paths), batches=-(-len(paths) // SERVE_BATCH),
-            decoder=decoder, **runs)
-        log(f"phase 9e serve CLI x/640² bf16 B={SERVE_BATCH} --inflight 2, "
-            f"{len(paths)} images ({len(unique)} files, PNGs among them, "
-            f"{SERVE_REPEATS} times), from a save_weights directory: "
-            f"detections.json equal to Detector.serve on the same decoded "
-            f"batches; {json.dumps(numbers['serve'])}")
-        plain = runs["plain"]
-        log(f"phase 9e serve CLI: wall {plain['img_per_s_incl_warm_up']} "
-            f"img/s with the warm-up; steady state "
-            f"{plain['steady_img_per_s']} img/s over "
-            f"{plain['steady_images']} images after a first batch of "
-            f"{plain['first_batch_s']} s; decoder {decoder}, "
-            f"{plain['decode_ms_per_img']} ms/img on the producer thread "
-            f"({plain['decode_s']} s of {plain['wall_s']} s); device idle "
-            f"share {idle} over the profiled run's steady state "
-            f"({idle_all} with its warm-up) | {card_line()}")
-    finally:
-        # 9b's 0.9 GB checkpoint; the fixture stays for phase 10
-        shutil.rmtree(os.path.join(root, "ckpt"), ignore_errors=True)
+    # ----------------------------------------------------- 9e. serve
+    # the fixture's 32 JPEGs and a PNG, repeated to a few hundred
+    # images so that the steady state after the first batch is timed
+    # over tens of batches
+    images = os.path.join(root, "serve_images")
+    os.makedirs(images)
+    unique = []
+    for split in ("train", "val"):
+        folder = os.path.join(data, "raw", "images", split)
+        unique += [os.path.join(folder, name)
+                   for name in sorted(os.listdir(folder))]
+    with Image.open(unique[0]) as im:
+        im.save(os.path.join(root, "frame.png"))
+    unique.append(os.path.join(root, "frame.png"))
+    for k in range(SERVE_REPEATS):
+        for src in unique:
+            shutil.copy(src, os.path.join(
+                images, f"r{k}_{os.path.basename(src)}"))
+    paths = sorted(os.path.join(images, n) for n in os.listdir(images))
+    wdir = os.path.join(root, "w_fused")
+    serve_args = ["--images", images, "--checkpoint", wdir, "--preset",
+                  "x", "--num_classes", NUM_CLASSES, "--input_size", HW,
+                  "--batch_size", SERVE_BATCH, "--inflight", 2, "--conf",
+                  POOL_CONF, "--device", "cuda"]
+    runs = {}
+    for name, extra in (("plain", []),
+                        ("profiled", ["--profile_dir",
+                                      os.path.join(root, "prof")])):
+        out, seconds = run_cli("torch_serve.py", serve_args + [
+            "--output", os.path.join(root, f"det_{name}.json")] + extra,
+            launches)
+        m = re.search(r"(\d+) images -> (\d+) detections in ([\d.]+) s "
+                      r"\(([\d.]+) img/s", out)
+        w = re.search(r"first batch fetched after ([\d.]+) s; the other "
+                      r"(\d+) images in ([\d.]+) s \(([\d.]+) img/s\); "
+                      r"decode on the producer thread ([\d.]+) s "
+                      r"\(([\d.]+) ms/img\)", out)
+        check(m is not None and w is not None
+              and int(m.group(1)) == len(paths),
+              f"serve CLI {name}: {out[-2000:]}")
+        runs[name] = {
+            "process_s": seconds, "wall_s": float(m.group(3)),
+            "img_per_s_incl_warm_up": float(m.group(4)),
+            "first_batch_s": float(w.group(1)),
+            "steady_images": int(w.group(2)),
+            "steady_s": float(w.group(3)),
+            "steady_img_per_s": float(w.group(4)),
+            "decode_s": float(w.group(5)),
+            "decode_ms_per_img": float(w.group(6)),
+            "detections": int(m.group(2))}
+    decoder = re.search(r"decoder: (\w+)", out).group(1)
+    with open(os.path.join(root, "det_plain.json")) as f:
+        served = json.load(f)
+    direct = Detector(preset["width"], preset["depth"], preset["csp"],
+                      NUM_CLASSES, input_size=(HW, HW))
+    direct.load_weights(wdir)
+    want = cli_serve_direct(direct, paths, HW, SERVE_BATCH, POOL_CONF)
+    check(served == want and sum(len(r["detections"])
+                                 for r in want) > 0,
+          "serve CLI: detections.json differs from Detector.serve on "
+          "the same decoded batches")
+    del direct
+    trace_path = os.path.join(root, "prof", "trace.json")
+    idle_all, busy_all, window_all = trace_idle_share(trace_path)
+    idle, busy_ms, window_ms = trace_idle_share(
+        trace_path, after="serve_cli.first_fetch")
+    runs["profiled"].update(
+        idle_share_steady=idle, device_busy_ms_steady=busy_ms,
+        trace_window_ms_steady=window_ms, idle_share_whole=idle_all,
+        device_busy_ms_whole=busy_all, trace_window_ms_whole=window_all)
+    numbers["serve"] = dict(
+        images=len(paths), batches=-(-len(paths) // SERVE_BATCH),
+        decoder=decoder, **runs)
+    log(f"phase 9e serve CLI x/640² bf16 B={SERVE_BATCH} --inflight 2, "
+        f"{len(paths)} images ({len(unique)} files, PNGs among them, "
+        f"{SERVE_REPEATS} times), from a save_weights directory: "
+        f"detections.json equal to Detector.serve on the same decoded "
+        f"batches; {json.dumps(numbers['serve'])}")
+    plain = runs["plain"]
+    log(f"phase 9e serve CLI: wall {plain['img_per_s_incl_warm_up']} "
+        f"img/s with the warm-up; steady state "
+        f"{plain['steady_img_per_s']} img/s over "
+        f"{plain['steady_images']} images after a first batch of "
+        f"{plain['first_batch_s']} s; decoder {decoder}, "
+        f"{plain['decode_ms_per_img']} ms/img on the producer thread "
+        f"({plain['decode_s']} s of {plain['wall_s']} s); device idle "
+        f"share {idle} over the profiled run's steady state "
+        f"({idle_all} with its warm-up) | {card_line()}")
+    # the fixture and 9b's checkpoint stay for phases 10 and 12
     return launches, persistence, numbers
+
+
+# ------------------------------------------------------ the quality phase
+# phase 12: the thresholds at which the sweep's rows are held to the
+# evaluate CLI: the gate's 0.25, and 0.001, where a one-epoch model has
+# detections and the top 100 of 8,400 anchors binds
+QUALITY_THRESHOLDS = (0.001, 0.25)
+
+
+def quality_phase(root: str) -> tuple:
+    """Phase 12: ``torch_sweep_eval.py`` and ``torch_rank_diag.py`` as
+    child processes on the card, on phase 9's fixture and its
+    ``model_epoch_0`` (x/640² bf16, EMA); each of the sweep's rows at
+    ``QUALITY_THRESHOLDS`` equal to ``torch_evaluate.py --conf_threshold t
+    --coco_map --model_coords`` (the sweep scores in model-input pixels);
+    the diagnostic's oracle mAP at least its as-is mAP. Returns (launch
+    counts of the child processes, numbers)."""
+    launches = counts()
+    cfg_path = os.path.join(root, "x.yaml")
+    ckpt = os.path.join(root, "ckpt")
+    numbers = {}
+    sweep_json = os.path.join(root, "sweep.json")
+    out, numbers["sweep_s"] = run_cli("torch_sweep_eval.py", [
+        "--config", cfg_path, "--checkpoint", ckpt, "--epochs", "all",
+        "--thresholds", ",".join(map(str, QUALITY_THRESHOLDS)), "--out",
+        sweep_json], launches)
+    with open(sweep_json) as f:
+        sweep = json.load(f)
+    check(list(sweep) == ["0"], f"sweep epochs {list(sweep)}: {out[-2000:]}")
+    numbers["evaluate_s"] = {}
+    for thr in QUALITY_THRESHOLDS:
+        out, numbers["evaluate_s"][thr] = run_cli("torch_evaluate.py", [
+            "--config", cfg_path, "--checkpoint",
+            os.path.join(ckpt, "model_epoch_0"), "--conf_threshold", thr,
+            "--coco_map", "--model_coords", "--device", "cuda"], launches)
+        want = printed_results(out)
+        row = sweep["0"][f"{thr:g}"]
+        for part in ("metrics", "coco"):
+            for key, value in want[part].items():
+                check(row[key] == value, f"phase 12 sweep at {thr} {key}: "
+                      f"{row[key]} vs the evaluate CLI's {value}")
+    low = sweep["0"][f"{QUALITY_THRESHOLDS[0]:g}"]
+    check(low["total_predictions"] > 0,
+          f"phase 12: no detection above {QUALITY_THRESHOLDS[0]}: {low}")
+    out, numbers["rank_diag_s"] = run_cli("torch_rank_diag.py", [
+        "--config", cfg_path, "--checkpoint", ckpt, "--epoch", 0],
+        launches)
+    diag = printed_results(out)
+    check(diag["preds"] > 0 and diag["images"] > 0
+          and np.isfinite(diag["mean_best_iou"])
+          and diag["oracle"]["mAP_50_95"] >= diag["as_is"]["mAP_50_95"],
+          f"phase 12 rank_diag: {diag}")
+    numbers.update(sweep_rows=sweep["0"], rank_diag=diag)
+    log(f"phase 12 torch_sweep_eval.py on model_epoch_0 (x/640² bf16, "
+        f"EMA), rows at {list(QUALITY_THRESHOLDS)} equal to "
+        f"torch_evaluate.py --model_coords at each; torch_rank_diag.py: "
+        f"{json.dumps(numbers)}")
+    log(f"phase 12 process s: sweep {numbers['sweep_s']}, evaluate "
+        f"{numbers['evaluate_s']}, rank_diag {numbers['rank_diag_s']} | "
+        f"{card_line()}")
+    return launches, numbers
 
 
 # ------------------------------------------------------ the distributed phase
@@ -3896,6 +3959,9 @@ def main() -> None:
         export_launches, _ = export_phase(
             p, root, {"fused": det, "optimized": opt, "int8": q8},
             norm_batch)
+
+        # --------------------------------- 12. the quality-diagnosis scripts
+        quality_launches, _ = quality_phase(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for name in ("attention", "attention_bwd", "nms_batched", "sppf"):
@@ -3905,12 +3971,18 @@ def main() -> None:
         f"10c in this process): {json.dumps(dist_launches)}")
     log(f"phase 11 launches of the export path (the artifacts' calls): "
         f"{json.dumps(export_launches)}")
+    for name in ("attention", "sppf"):
+        check(quality_launches[name] > 0, f"the quality path never "
+              f"launched {name}: {quality_launches}")
+    log(f"phase 12 launches of the quality path (the scripts' processes): "
+        f"{json.dumps(quality_launches)}")
 
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
              "int8": int8_launches, "trainer": trainer_launches,
              "cli": cli_launches, "persistence": persistence_launches,
-             "distributed": dist_launches, "export": export_launches}
+             "distributed": dist_launches, "export": export_launches,
+             "quality": quality_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):
