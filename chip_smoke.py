@@ -57,6 +57,14 @@ quality-diagnosis scripts (``scripts/torch_sweep_eval.py``,
 ``scripts/torch_rank_diag.py``) as child processes on phase 9's fixture
 and checkpoint and holds the sweep's rows to ``scripts/torch_evaluate.py``
 at the same thresholds; their launch counts make the ``quality`` path.
+Phase 13 runs the last user entry points in this process: the examples
+(``examples/torch_serve_folder.py`` and ``torch_inference_demo.py`` held
+to ``Detector.serve`` and ``inference`` on phase 9's images and weights,
+``torch_train_smoke.py`` at x/640²), ``scripts/torch_profile.py`` and its
+digest ``scripts/torch_analyze_profile.py`` held to phase 7's profile of
+the same train step, and ``scripts/torch_soak.py``'s phases at a reduced
+scale (two ``fit_chunk`` runs, the second resuming the first); their
+launch counts make the ``examples``, ``profile`` and ``soak`` paths.
 Any failed check ends the run with a non-zero exit. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as ``nvidia-smi`` reports them.
@@ -64,6 +72,9 @@ and power limit as ``nvidia-smi`` reports them.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import os
 import re
@@ -1905,6 +1916,327 @@ def cli_phase(env: dict, preset: dict, root: str) -> tuple:
         f"({idle_all} with its warm-up) | {card_line()}")
     # the fixture and 9b's checkpoint stay for phases 10 and 12
     return launches, persistence, numbers
+
+
+# ------------------------------------------------- the last entry points
+# phase 13: the examples, the train-step profiler and its digest, and the
+# soak at a reduced scale, each run in this process; the soak's sizes, and
+# the steps the profiler captures
+SOAK_SIZES = dict(train_images=512, val_images=64, loader_batches=50,
+                  train_steps=30, fit_steps=5, eval_images=500)
+SOAK_BATCH = 16
+PROFILE_STEPS = 3
+# phase 13b: the digest's device ms a step against phase 7's busy ms of
+# the same step, and its phase rows against its total
+PROFILE_AGREEMENT = 0.2
+PHASE_SUM_TOL = 0.01
+
+
+def load_entry_point(folder: str, name: str):
+    """The module of ``folder/name.py``, imported without running its
+    ``main`` and registered in ``sys.modules`` (the soak's forked workers
+    unpickle its functions by that name)."""
+    spec = importlib.util.spec_from_file_location(
+        f"{folder}_{name}", os.path.join(REPO, folder, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def argv(*args) -> list:
+    return [str(a) for a in args]
+
+
+def run_entry_point(fn, sink: dict, printed: bool = True):
+    """``fn()`` in this process with the launch counts zeroed first; its
+    launches are added to ``sink``. A script's ``main`` prints its launch
+    counts last (``printed``): the line must equal the counters. Returns
+    (fn's result, its standard output, seconds)."""
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    log(out.rstrip())
+    got = read_counts()
+    if printed:
+        lines = [line[len(LAUNCH_LINE):] for line in out.splitlines()
+                 if line.startswith(LAUNCH_LINE)]
+        check(len(lines) == 1 and json.loads(lines[0]) == got,
+              f"the launch line {lines} differs from the counters {got}")
+    for name, n in got.items():
+        sink[name] += n
+    return result, out, seconds
+
+
+def folder_serve_direct(det, paths, hw: int, batch: int,
+                        conf: float) -> dict:
+    """What ``examples/torch_serve_folder.py`` writes, computed here: its
+    decoder choice (native where it builds, else PIL), its batches (the
+    last padded from its own first images), host normalisation and
+    ``Detector.serve``, boxes scaled to the original image."""
+    from PIL import Image
+
+    from custom_yolo_tpu_torch.runtime import NativeDecoder, native_available
+
+    dec = NativeDecoder(8) if native_available() else None
+    out = {}
+    for i in range(0, len(paths), batch):
+        chunk = paths[i:i + batch]
+        if dec is not None:
+            images, sizes = dec.decode_batch(chunk, hw, hw)[:2]
+        else:
+            imgs, sizes = [], []
+            for path in chunk:
+                with Image.open(path) as im:
+                    im = im.convert("RGB")
+                    sizes.append(im.size)
+                    imgs.append(np.asarray(im.resize(
+                        (hw, hw), Image.Resampling.BILINEAR)))
+            images, sizes = np.stack(imgs), np.asarray(sizes, np.int32)
+        n = len(chunk)
+        images = np.concatenate([images, images[np.arange(batch - n) % n]])
+        x = (images.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        r = det.serve(torch.from_numpy(x), conf_thres=conf)
+        boxes, scores = r.boxes.cpu().numpy(), r.scores.cpu().numpy()
+        classes, valid = r.classes.cpu().numpy(), r.valid.cpu().numpy()
+        for j, path in enumerate(chunk):
+            sx, sy, v = sizes[j, 0] / hw, sizes[j, 1] / hw, valid[j]
+            out[os.path.basename(path)] = [{
+                "bbox_xyxy": [float(x1 * sx), float(y1 * sy),
+                              float(x2 * sx), float(y2 * sy)],
+                "score": float(s), "class_id": int(c)}
+                for (x1, y1, x2, y2), s, c in zip(
+                    boxes[j][v], scores[j][v], classes[j][v])]
+    return out
+
+
+def examples_phase(preset: dict, root: str, sink: dict) -> dict:
+    """Phase 13a: ``examples/torch_serve_folder.py`` over phase 9's train
+    JPEGs from 9d's fused ``save_weights`` directory, equal to
+    ``Detector.serve`` on the same decoded batches;
+    ``examples/torch_inference_demo.py`` on one of them from 9b's
+    checkpoint (EMA), equal to ``Detector.inference``;
+    ``examples/torch_train_smoke.py --synthetic`` at x/640² B=8, five
+    steps, finite losses."""
+    from custom_yolo_tpu_torch.utils.checkpoint import restore_variables
+
+    numbers = {}
+    cfg_path = os.path.join(root, "x.yaml")
+    folder = os.path.join(root, "data", "raw", "images", "train")
+    paths = sorted(os.path.join(folder, n) for n in os.listdir(folder))
+    wdir = os.path.join(root, "w_fused")
+    folder_json = os.path.join(root, "folder.json")
+    batch = 16
+    serve_folder = load_entry_point("examples", "torch_serve_folder")
+    served, out, numbers["serve_folder_s"] = run_entry_point(
+        lambda: serve_folder.main(argv(
+            "--images", folder, "--config", cfg_path, "--checkpoint", wdir,
+            "--batch_size", batch, "--conf", POOL_CONF, "--out",
+            folder_json, "--device", "cuda")), sink)
+    with open(folder_json) as f:
+        check(json.load(f) == served, "serve_folder: its JSON file differs "
+              "from what its main returned")
+    det = Detector(preset["width"], preset["depth"], preset["csp"],
+                   NUM_CLASSES, input_size=(HW, HW))
+    det.load_weights(wdir)
+    det.fuse()
+    want = folder_serve_direct(det, paths, HW, batch, POOL_CONF)
+    n_det = sum(len(v) for v in want.values())
+    check(served == want and n_det > 0, "serve_folder: detections differ "
+          "from Detector.serve on the same decoded batches")
+    numbers["serve_folder"] = {"images": len(paths), "detections": n_det,
+                               "line": out.splitlines()[-2]}
+    del det
+
+    image = paths[0]
+    demo = load_entry_point("examples", "torch_inference_demo")
+    got, out, numbers["inference_demo_s"] = run_entry_point(
+        lambda: demo.main(argv(
+            "--image", image, "--config", cfg_path, "--checkpoint",
+            os.path.join(root, "ckpt"), "--conf", POOL_CONF, "--fuse",
+            "--device", "cuda")), sink)
+    check("[INFO] restored epoch 1" in out,
+          f"inference_demo did not restore 9b's checkpoint: {out[-1000:]}")
+    det = Detector(preset["width"], preset["depth"], preset["csp"],
+                   NUM_CLASSES, input_size=(HW, HW))
+    det.load_variables(restore_variables(os.path.join(root, "ckpt"), 0)[0])
+    det.fuse()
+    want = det.inference(image, conf_thres=POOL_CONF)[0]
+    check(np.array_equal(got, want) and len(want) > 0,
+          "inference_demo: detections differ from Detector.inference")
+    numbers["inference_demo_detections"] = len(want)
+    del det
+
+    smoke = load_entry_point("examples", "torch_train_smoke")
+    history, out, numbers["train_smoke_s"] = run_entry_point(
+        lambda: smoke.main(argv(
+            "--config", os.path.join(REPO, "configs", "config.yaml"),
+            "--synthetic", "--preset", "x", "--input_size", HW,
+            "--batch_size", TRAIN_BATCH, "--steps", 5, "--device",
+            "cuda")), sink)
+    check(len(history) == 5 and all(np.isfinite(v) for m in history
+                                    for v in m.values()),
+          f"train_smoke: {history}")
+    numbers["train_smoke"] = {"total_loss": [m["total_loss"]
+                                             for m in history],
+                              "line": out.splitlines()[-2]}
+    log(f"phase 13a examples, x/640² bf16: torch_serve_folder.py B={batch} "
+        f"over {len(paths)} JPEGs equal to Detector.serve on the same "
+        f"decoded batches, torch_inference_demo.py --fuse equal to "
+        f"Detector.inference ({len(want)} detections), "
+        f"torch_train_smoke.py --synthetic B={TRAIN_BATCH} 5 steps finite: "
+        f"{json.dumps(numbers)}")
+    return numbers
+
+
+def profile_phase(root: str, train_busy_ms: float, sink: dict) -> dict:
+    """Phase 13b: ``scripts/torch_profile.py`` at x/640² B=8 TAL (16 box
+    slots, phase 7's) for ``PROFILE_STEPS`` steps, then
+    ``scripts/torch_analyze_profile.py``: its phase rows sum to its
+    total, fwd and bwd both hold time, K1 and K4 run as often as the
+    captured steps launch them, and its device ms a step lies within
+    ``PROFILE_AGREEMENT`` of phase 7's busy ms of the same step."""
+    cfg = Config.from_yaml(os.path.join(REPO, "configs", "config.yaml"))
+    cfg.project.profile_dir = os.path.join(root, "profile")
+    cfg_path = os.path.join(root, "profile.yaml")
+    cfg.save(cfg_path)
+    profile = load_entry_point("scripts", "torch_profile")
+    _, _, capture_s = run_entry_point(lambda: profile.main(argv(
+        "--config", cfg_path, "--preset", "x", "--batch_size", TRAIN_BATCH,
+        "--assigner", "tal", "--max_gt", TRAIN_MAX_BOXES, "--steps",
+        PROFILE_STEPS, "--device", "cuda")), sink)
+    steps = PROFILE_STEPS + 1    # the warm-up step is launched too
+    check(sink["attention"] == 2 * steps
+          and sink["attention_bwd"] == 2 * steps,
+          f"torch_profile.py launched {sink}, want K1 and K4 {2 * steps} "
+          f"times each")
+    analyze = load_entry_point("scripts", "torch_analyze_profile")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        digest = analyze.main(argv("--dir", cfg.project.profile_dir,
+                                   "--steps", PROFILE_STEPS))
+    digest_s = time.perf_counter() - t0
+    log(buf.getvalue().rstrip())
+    phases = {row[0]: row[1] for row in digest["phase"]}
+    check(digest["on_device"] and abs(sum(phases.values())
+                                      - digest["total_ms"])
+          <= PHASE_SUM_TOL * digest["total_ms"],
+          f"13b: phase rows {phases} against the total "
+          f"{digest['total_ms']} ms")
+    check(phases.get("fwd", 0) > 0 and phases.get("bwd", 0) > 0,
+          f"13b: fwd or bwd holds no time: {phases}")
+    # K1 one kernel a call, K4 two (dq, dkv); two calls of each a step
+    port = digest["port_kernels"]
+    check(port.get("K1 psa_attention_fwd") == 2 * PROFILE_STEPS
+          and port.get("K4 psa_attention_bwd") == 4 * PROFILE_STEPS,
+          f"13b: port kernels in the capture {port}, want K1 "
+          f"{2 * PROFILE_STEPS} and K4 {4 * PROFILE_STEPS}")
+    ratio = digest["total_ms"] / train_busy_ms
+    check(abs(ratio - 1) <= PROFILE_AGREEMENT,
+          f"13b: the digest's {digest['total_ms']} device ms a step against "
+          f"phase 7's busy {train_busy_ms} ms (ratio {ratio})")
+    numbers = {"capture_s": capture_s, "digest_s": digest_s,
+               "device_ms_per_step": digest["total_ms"],
+               "wall_ms_per_step": digest["wall_ms"],
+               "phase7_busy_ms": train_busy_ms, "ratio": ratio,
+               "phase_ms": phases, "port_kernels": port,
+               "family_ms": {row[0]: row[1] for row in digest["family"]},
+               "hottest": digest["hottest"][:8]}
+    log(f"phase 13b torch_profile.py x/640² B={TRAIN_BATCH} TAL "
+        f"{PROFILE_STEPS} steps + torch_analyze_profile.py: device "
+        f"{digest['total_ms']} ms a step (phase 7 busy {train_busy_ms}, "
+        f"ratio {ratio}), wall {digest['wall_ms']} ms a step; "
+        f"{json.dumps(numbers)} | {card_line()}")
+    return numbers
+
+
+def soak_phase(root: str, sink: dict) -> dict:
+    """Phase 13c: ``scripts/torch_soak.py``'s phases at ``SOAK_SIZES``:
+    gen, etl, loader, train (x, 180 classes, B=16), ``fit_chunk`` twice on
+    a copy of ``configs/soak_coco_scale.yaml`` whose data and checkpoint
+    paths point under ``root`` (the second resumes the first's global
+    step), eval."""
+    import yaml
+
+    soak = load_entry_point("scripts", "torch_soak")
+    data = os.path.join(root, "soak")
+    workers = max(4, os.cpu_count() - 2)
+    z = SOAK_SIZES
+    stats, seconds = {}, {}
+
+    def timed_phase(name, fn):
+        stats[name], _, seconds[name] = run_entry_point(fn, sink,
+                                                        printed=False)
+
+    timed_phase("gen", lambda: soak.phase_gen(
+        data, z["train_images"], z["val_images"], workers))
+    timed_phase("etl", lambda: soak.phase_etl(data))
+    timed_phase("loader", lambda: soak.phase_loader(
+        data, SOAK_BATCH, workers, n_batches=z["loader_batches"]))
+    timed_phase("train", lambda: soak.phase_train(
+        data, SOAK_BATCH, workers, z["train_steps"]))
+    with open(os.path.join(REPO, "configs", "soak_coco_scale.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["data"].update(
+        processed_dir=os.path.join(data, "processed", "parquet"),
+        train_images=os.path.join(data, "raw", "images", "train"),
+        val_images=os.path.join(data, "raw", "images", "val"),
+        num_workers=workers)
+    raw["checkpoint"]["checkpoint_dir"] = os.path.join(data, "ckpt")
+    fit_cfg = os.path.join(data, "soak_coco_scale.yaml")
+    with open(fit_cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    chunks, seconds["fit_chunks"] = [], []
+    for _ in range(2):
+        chunk, _, chunk_s = run_entry_point(lambda: soak.phase_fit_chunk(
+            z["fit_steps"], fit_cfg), sink, printed=False)
+        chunks.append(chunk)
+        seconds["fit_chunks"].append(chunk_s)
+    stats["fit_chunks"] = chunks
+    timed_phase("eval", lambda: soak.phase_eval(
+        data, SOAK_BATCH, workers, n_images=z["eval_images"]))
+    check(stats["gen"]["train"]["images"] == z["train_images"]
+          and stats["loader"]["images"] == z["loader_batches"] * SOAK_BATCH
+          and stats["train"]["steps"] == z["train_steps"],
+          f"13c: {stats}")
+    check([c["chunk"] for c in chunks] == [0, 1]
+          and chunks[1]["global_step"] == chunks[0]["global_step"]
+          + z["fit_steps"] == 2 * z["fit_steps"]
+          and all(np.isfinite(c["final_loss"]) for c in chunks),
+          f"13c: the second chunk does not resume the first: {chunks}")
+    check(0 < stats["eval"]["map_50_95"] < 1, f"13c eval: {stats['eval']}")
+    log(f"phase 13c torch_soak.py phases at {json.dumps(z)} (B="
+        f"{SOAK_BATCH}, {workers} workers): the second fit_chunk resumed "
+        f"global step {chunks[0]['global_step']}; stats "
+        f"{json.dumps(stats)}; seconds {json.dumps(seconds)} | "
+        f"{card_line()}")
+    return {"stats": stats, "seconds": seconds}
+
+
+def entry_points_phase(preset: dict, root: str,
+                       train_busy_ms: float) -> tuple:
+    """Phase 13: the examples (13a), the train-step profiler and its
+    digest (13b) and the soak at a reduced scale (13c), in this process,
+    after phase 9 (its fixture, checkpoint and ``save_weights``
+    directory under ``root``). Returns (the launch counts of the
+    ``examples``, ``profile`` and ``soak`` paths, numbers)."""
+    t0 = time.perf_counter()
+    launches = {"examples": counts(), "profile": counts(), "soak": counts()}
+    numbers = {"examples": examples_phase(preset, root,
+                                          launches["examples"])}
+    torch.cuda.empty_cache()
+    numbers["profile"] = profile_phase(root, train_busy_ms,
+                                       launches["profile"])
+    torch.cuda.empty_cache()
+    numbers["soak"] = soak_phase(root, launches["soak"])
+    torch.cuda.empty_cache()
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    return launches, numbers
 
 
 # ------------------------------------------------------ the quality phase
@@ -3913,6 +4245,8 @@ def main() -> None:
     log(json.dumps(timing))
     prof = profile_call(lambda: tal_step(state, tbatch), reps=2)
     log(json.dumps({"card": card, "profile_train_batch": train_n, **prof}))
+    # phase 13b's yardstick: the device busy ms of one TAL step
+    train_busy_ms = prof["device_busy_ms"] / prof["calls"]
     serve_profiles = {}
     for name, detector, tower, keys in variants:
         for key in keys:
@@ -3962,6 +4296,9 @@ def main() -> None:
 
         # --------------------------------- 12. the quality-diagnosis scripts
         quality_launches, _ = quality_phase(root)
+
+        # ------------ 13. the examples, the step profiler and the soak
+        entry_launches, _ = entry_points_phase(p, root, train_busy_ms)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for name in ("attention", "attention_bwd", "nms_batched", "sppf"):
@@ -3977,12 +4314,22 @@ def main() -> None:
     log(f"phase 12 launches of the quality path (the scripts' processes): "
         f"{json.dumps(quality_launches)}")
 
+    for path, names in (("examples", ("attention", "attention_bwd",
+                                      "nms_batched", "nms_single", "sppf")),
+                        ("profile", ("attention", "attention_bwd")),
+                        ("soak", ("attention", "attention_bwd"))):
+        for name in names:
+            check(entry_launches[path][name] > 0, f"the {path} path never "
+                  f"launched {name}: {entry_launches[path]}")
+    log(f"phase 13 launches of the examples, profile and soak paths (the "
+        f"scripts' calls in this process): {json.dumps(entry_launches)}")
+
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
              "int8": int8_launches, "trainer": trainer_launches,
              "cli": cli_launches, "persistence": persistence_launches,
              "distributed": dist_launches, "export": export_launches,
-             "quality": quality_launches}
+             "quality": quality_launches, **entry_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):

@@ -7,6 +7,7 @@ reads the launch counts of the port's hand-written kernels."""
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Callable, Dict, Optional
@@ -20,10 +21,13 @@ TRACE_FILE = "trace.json"
 
 
 @contextlib.contextmanager
-def trace(profile_dir: Optional[str]):
+def trace(profile_dir: Optional[str], with_flops: bool = False):
     """Capture a ``torch.profiler`` trace of the enclosed block, the CPU's
     activity and, where CUDA is there, the card's, into
-    ``profile_dir/trace.json``; nothing when ``profile_dir`` is empty."""
+    ``profile_dir/trace.json``; nothing when ``profile_dir`` is empty.
+    ``with_flops``: the profiler's FLOP estimates (convolutions and matrix
+    products), which its Chrome export leaves out, are written into the
+    ``args`` of their ops as ``flops``."""
     if not profile_dir:
         yield
         return
@@ -33,9 +37,26 @@ def trace(profile_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    path = os.path.join(profile_dir, TRACE_FILE)
+    with profile(activities=activities, with_flops=with_flops) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
+    prof.export_chrome_trace(path)
+    if with_flops:
+        _add_flops(path, {e.id: e.flops for e in prof.events() if e.flops})
+
+
+def _add_flops(path: str, flops: Dict[int, int]) -> None:
+    """Write ``flops`` (by the op's id, the trace's ``External id``) into
+    the ``args`` of the trace's CPU ops at ``path``."""
+    with open(path) as f:
+        doc = json.load(f)
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "cpu_op":
+            n = flops.get((e.get("args") or {}).get("External id"))
+            if n:
+                e["args"]["flops"] = n
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def _cuda_tensor(out) -> Optional[torch.Tensor]:

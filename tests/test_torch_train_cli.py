@@ -1,6 +1,7 @@
 """``scripts/torch_train.py``, the port's training entry point, on the CPU
 over a fixture: one epoch, then a resume from its checkpoint."""
 
+import json
 import os
 import subprocess
 import sys
@@ -10,7 +11,7 @@ import pytest
 from custom_yolo_tpu_torch import config as port_config
 from custom_yolo_tpu_torch.utils.checkpoint import load_sidecar
 from test_torch_trainer import _raw_config
-from torch_project import make_project
+from torch_project import load_script, make_project
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,10 +21,12 @@ def project(tmp_path_factory):
     return make_project(tmp_path_factory.mktemp("proj"), [(96, 96)] * 8)
 
 
-def test_train_cli_on_the_cpu(project, tmp_path):
+def test_train_cli_on_the_cpu(project, tmp_path, monkeypatch):
     """``scripts/torch_train.py --device cpu --mode single --epochs 1``
     exits 0 and writes ``model_epoch_0/`` and the sidecar; a second run
-    with ``--load_from_checkpoint`` resumes from it for a second epoch."""
+    with ``--load_from_checkpoint`` resumes from it for a second epoch.
+    ``scripts/extract_epochs.py`` reads the two runs' console log: one
+    row for each epoch line."""
     raw = _raw_config()
     raw["data"].update(processed_dir=str(project / "parquet"),
                        train_parquet="val", val_parquet="val",
@@ -48,3 +51,12 @@ def test_train_cli_on_the_cpu(project, tmp_path):
     assert second.returncode == 0, second.stderr[-3000:]
     assert "resumed from epoch 1" in second.stderr
     assert (ckpt_dir / "model_epoch_1" / "state.pt").exists()
+    log = tmp_path / "console.log"
+    log.write_text(first.stderr + second.stderr)
+    out = tmp_path / "epochs.json"
+    monkeypatch.setattr(sys, "argv", ["extract_epochs.py", "--log",
+                                      str(log), "--out", str(out)])
+    load_script("extract_epochs").main()
+    rows = json.loads(out.read_text())["rows"]
+    assert [row["epoch"] for row in rows] == [1, 2]
+    assert all(row["train_loss"] > 0 and row["lr"] > 0 for row in rows)

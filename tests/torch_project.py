@@ -84,16 +84,19 @@ def random_jax_variables(model, hw, seed):
     return jax.tree_util.tree_map_with_path(fill, dict(shapes))
 
 
-def load_script(name):
-    """The module of ``scripts/{name}.py``, imported without running its
-    ``main`` (a fresh module object on each call)."""
+def load_script(name, folder="scripts"):
+    """The module of ``{folder}/{name}.py``, imported without running its
+    ``main`` (a fresh module object on each call, registered in
+    ``sys.modules`` so that worker processes can unpickle its functions)."""
     import importlib.util
     import os
+    import sys
 
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "scripts", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"script_{name}", path)
+        os.path.abspath(__file__))), folder, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"{folder}_{name}", path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
     spec.loader.exec_module(module)
     return module
 
