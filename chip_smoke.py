@@ -65,6 +65,12 @@ digest ``scripts/torch_analyze_profile.py`` held to phase 7's profile of
 the same train step, and ``scripts/torch_soak.py``'s phases at a reduced
 scale (two ``fit_chunk`` runs, the second resuming the first); their
 launch counts make the ``examples``, ``profile`` and ``soak`` paths.
+Phase 14 runs ``scripts/torch_multichip_report.py`` as a child process
+(beside phase 12's, before phase 13) at
+x/640² bf16 on four ranks (data 2 × fsdp 2, hybrid sharding), holds each
+source's collectives to the modules' prediction and its two steps to the
+same steps on one card; its ranks' launch counts make the ``multichip``
+path, and its report is printed.
 Any failed check ends the run with a non-zero exit. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as ``nvidia-smi`` reports them.
@@ -210,6 +216,14 @@ def counts(**nonzero) -> dict:
 
 def log(*args):
     print(*args, flush=True)
+
+
+STARTED = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The run's elapsed seconds as a phase starts."""
+    log(f"phase {phase} starts at {time.perf_counter() - STARTED:.1f} s")
 
 
 def fail(msg: str) -> None:
@@ -2239,6 +2253,115 @@ def entry_points_phase(preset: dict, root: str,
     return launches, numbers
 
 
+# ----------------------------------------------------- the multichip phase
+# phase 14: scripts/torch_multichip_report.py at x/640² bf16 on four ranks
+# (data 2 × fsdp 2, sharing the card over gloo where there are fewer
+# cards), global batch 8
+MULTICHIP_RANKS = 4
+MULTICHIP_ARGS = ("--preset", "x", "--input_size", str(HW), "--devices",
+                  str(MULTICHIP_RANKS), "--device", "cuda")
+
+
+def start_multichip(root: str) -> tuple:
+    """Phase 14's report started as a child process, its ranks running
+    while phase 12's processes do (neither times anything the other could
+    disturb); its report goes under ``root``. Returns (the process, its
+    command, the report's path, the start time)."""
+    doc = os.path.join(root, "MULTICHIP_TORCH.md")
+    cmd = [sys.executable, os.path.join(REPO, "scripts",
+                                        "torch_multichip_report.py"),
+           *MULTICHIP_ARGS, "--out", doc]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO)
+    return proc, cmd, doc, time.perf_counter()
+
+
+def multichip_phase(started: tuple) -> tuple:
+    """Phase 14: the multi-card report (:func:`start_multichip`). Its
+    collectives must equal the modules' prediction source by source on
+    every rank,
+    FSDP2's all-gathers and reduce-scatters must carry the bytes of the
+    parameters ``param_shardings`` splits, its ranks must launch K1 and
+    K4, and its two steps' ``total_loss`` and ``grad_norm`` must agree
+    with the same steps on one card over the same global batch, run
+    here, within phase 10's bf16 limits (against the one-card fp32 run,
+    DIST_BF16_FACTOR times the one-card bf16 run's own error, at least
+    DIST_BF16_FLOOR). The report (``docs/MULTICHIP_TORCH.md`` when the
+    script runs alone) is printed. Returns (the ranks' launch counts,
+    numbers)."""
+    card = card_line()
+    report = load_entry_point("scripts", "torch_multichip_report")
+    proc, cmd, doc, t0 = started
+    out, err = proc.communicate(timeout=900)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd)} exited with "
+          f"{proc.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
+    res = printed_results(out)
+    check(os.path.exists(doc), f"14: no {doc}")
+    with open(doc) as f:
+        log(f"phase 14 report:\n{f.read()}")
+    check(res["mesh"] == {"data": 2, "fsdp": 2},
+          f"14: the mesh is {res['mesh']}")
+    bad = {k: v for k, v in res["by_source"].items() if not v["match"]}
+    check(res["all_match"] and not bad and res["ranks_agree"],
+          f"14: collectives against their prediction {bad}, ranks agree "
+          f"{res['ranks_agree']}")
+    src = res["by_source"]
+    split = res["split_param_bytes"]
+    check(split > 0 and src["fsdp_reduce_scatter"]["bytes"] == split
+          and src["fsdp_all_gather"]["bytes"] >= split,
+          f"14: FSDP2 moved {src['fsdp_all_gather']['bytes']} B gathered, "
+          f"{src['fsdp_reduce_scatter']['bytes']} B reduce-scattered for "
+          f"{split} B of split parameters")
+    launches = counts(**res["launches"])
+    for name in ("attention", "attention_bwd"):
+        check(launches[name] > 0, f"14: the ranks never launched {name}: "
+              f"{res['launches']}")
+    # the same two steps on one card over the whole global batch
+    args = report.parse_args([*MULTICHIP_ARGS])
+    data = report.synthetic_batch(TRAIN_BATCH, HW, args.num_classes)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    runs = {}
+    for precision in ("float32", "bfloat16"):
+        model, state, loss_fn = report.build_step(args, "cuda", False,
+                                                  precision)
+        step = make_train_step(model, loss_fn, state.optimizer)
+        runs[precision] = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            runs[precision].append({k: float(v) for k, v in m.items()})
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    def errors(got):
+        """Each step's relative error of total_loss and grad_norm against
+        the one-card fp32 run."""
+        return [{key: abs(g[key] - w[key]) / abs(w[key])
+                 for key in ("total_loss", "grad_norm")}
+                for g, w in zip(got, runs["float32"])]
+
+    # step by step: after the first AdamW update, bf16 and fp32 part
+    # (near-zero gradients change sign, each a ±lr step)
+    own = errors(runs["bfloat16"])
+    limits = [{k: DIST_BF16_FACTOR * max(v, DIST_BF16_FLOOR)
+               for k, v in step_errs.items()} for step_errs in own]
+    errs = errors(res["metrics"])
+    check(all(e[k] <= lim[k] for e, lim in zip(errs, limits) for k in lim),
+          f"14: the report's steps {res['metrics']} against one card "
+          f"{runs['float32']}: errors {errs} above {limits}")
+    numbers = {"seconds": seconds, "phase_s": time.perf_counter() - t0,
+               "errors": errs, "own_bf16_errors": own, "limits": limits,
+               "metrics": res["metrics"], "one_card": runs,
+               "collectives": {k: [v["count"], v["bytes"]]
+                               for k, v in src.items() if v["count"]},
+               "split_param_bytes": split, "flops": res["flops"],
+               "counted_ms": res["counted_ms"], "backend": res["backend"]}
+    log(f"phase 14 torch_multichip_report.py {' '.join(MULTICHIP_ARGS)} "
+        f"(started before phase 12, its ranks beside phase 12's processes): "
+        f"{json.dumps(numbers)} | {card}")
+    return launches, numbers
+
+
 # ------------------------------------------------------ the quality phase
 # phase 12: the thresholds at which the sweep's rows are held to the
 # evaluate CLI: the gate's 0.25, and 0.001, where a one-epoch model has
@@ -2581,41 +2704,64 @@ def change_error(before: dict, ref: dict, got: dict) -> float:
     return (num / den) ** 0.5
 
 
-def torchrun_train(cfg_path: str, mode: str, world: int, ckpt: str,
-                   backend: str, sink: dict) -> tuple:
+def torchrun_train(cfg_path: str, modes, world: int, work: str,
+                   backend: str, sink: dict) -> dict:
     """Phase 10b: ``torchrun --nproc_per_node world scripts/torch_train.py
-    --mode mode`` for one epoch at DIST_CLI_BATCH images a device; the
-    ranks' launch counts go to ``sink``. Returns (rank 0's last epoch
-    record, seconds)."""
+    --mode mode`` for one epoch at DIST_CLI_BATCH images a device, one
+    job for each of ``modes``, all at once (each its own port and
+    ``work/ck_<mode>``); the ranks' launch counts go to ``sink``. Returns
+    {mode: (rank 0's last epoch record, seconds)}."""
+    import contextlib
     import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-           str(world), "--master_port", str(port),
-           os.path.join(REPO, "scripts", "torch_train.py"), "--config",
-           cfg_path, "--device", "cuda", "--mode", mode, "--epochs", "1",
-           "--checkpoint_dir", ckpt, "--batch_size", str(DIST_CLI_BATCH),
-           "--backend", backend]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
-                       timeout=900)
-    seconds = time.perf_counter() - t0
-    check(r.returncode == 0, f"{' '.join(cmd)} exited with {r.returncode}:"
-          f"\n{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
-    lines = r.stdout.splitlines()
-    launch_lines = [line[len(LAUNCH_LINE):] for line in lines
-                    if line.startswith(LAUNCH_LINE)]
-    check(len(launch_lines) == world, f"10b {mode}: {len(launch_lines)} "
-          f"launch lines from {world} ranks")
-    for line in launch_lines:
-        for name, n in json.loads(line).items():
-            sink[name] += n
-    history = [json.loads(line.split(": ", 1)[1]) for line in lines
-               if line.startswith("[INFO] history: ")]
-    check(len(history) == 1, f"10b {mode}: no history line")
-    return history[0], seconds
+    with contextlib.ExitStack() as stack:
+        # every port held until all are chosen, so that no two jobs share one
+        socks = [stack.enter_context(socket.socket()) for _ in modes]
+        for sock in socks:
+            sock.bind(("localhost", 0))
+        ports = [sock.getsockname()[1] for sock in socks]
+    jobs = {}
+    for mode, port in zip(modes, ports):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(world), "--master_port", str(port),
+               os.path.join(REPO, "scripts", "torch_train.py"), "--config",
+               cfg_path, "--device", "cuda", "--mode", mode, "--epochs",
+               "1", "--checkpoint_dir", os.path.join(work, f"ck_{mode}"),
+               "--batch_size", str(DIST_CLI_BATCH), "--backend", backend]
+        # into files: a pipe that fills while another job is waited on
+        # would stall its job
+        logs = [open(os.path.join(work, f"{mode}.{k}"), "w+")
+                for k in ("out", "err")]
+        jobs[mode] = (cmd, time.perf_counter(), logs, subprocess.Popen(
+            cmd, stdout=logs[0], stderr=logs[1], text=True, cwd=REPO))
+    results = {}
+    try:
+        for mode, (cmd, t0, logs, proc) in jobs.items():
+            proc.wait(timeout=900)
+            seconds = time.perf_counter() - t0
+            for f in logs:
+                f.seek(0)
+            stdout, stderr = (f.read() for f in logs)
+            check(proc.returncode == 0, f"{' '.join(cmd)} exited with "
+                  f"{proc.returncode}:\n{stdout[-3000:]}\n{stderr[-6000:]}")
+            lines = stdout.splitlines()
+            launch_lines = [line[len(LAUNCH_LINE):] for line in lines
+                            if line.startswith(LAUNCH_LINE)]
+            check(len(launch_lines) == world, f"10b {mode}: "
+                  f"{len(launch_lines)} launch lines from {world} ranks")
+            for line in launch_lines:
+                for name, n in json.loads(line).items():
+                    sink[name] += n
+            history = [json.loads(line.split(": ", 1)[1]) for line in lines
+                       if line.startswith("[INFO] history: ")]
+            check(len(history) == 1, f"10b {mode}: no history line")
+            results[mode] = history[0], seconds
+    finally:
+        for _, _, logs, proc in jobs.values():
+            proc.kill()
+            for f in logs:
+                f.close()
+    return results
 
 
 def distributed_phase(env: dict, preset: dict, root: str,
@@ -2626,8 +2772,8 @@ def distributed_phase(env: dict, preset: dict, root: str,
     call, and then runs two gloo ranks on ``cuda:0`` (or, if not, a world
     of one NCCL rank). 10a: DDP and FSDP2 steps as child processes against
     the one-card step on the same global batch; 10b: ``torchrun
-    scripts/torch_train.py`` dp and fsdp for one epoch on phase 9's
-    fixture (``root/x.yaml``), the validation counters against a
+    scripts/torch_train.py`` dp and fsdp at once, one epoch each, on
+    phase 9's fixture (``root/x.yaml``), the validation counters against a
     single-process run over the same global batches, the fsdp checkpoint
     restored into ``single`` bit for bit (``single`` is phase 9b's record,
     an epoch of one process over those global batches); 10c:
@@ -2718,10 +2864,10 @@ def distributed_phase(env: dict, preset: dict, root: str,
     # ------------------------------------------------------ 10b. the CLI
     cfg_path = os.path.join(root, "x.yaml")
     records, cli_s = {"single": single}, {}
-    for mode in ("dp", "fsdp"):
-        records[mode], cli_s[mode] = torchrun_train(
-            cfg_path, mode, world, os.path.join(work, f"ck_{mode}"),
-            backend, launches)
+    jobs = torchrun_train(cfg_path, ("dp", "fsdp"), world, work, backend,
+                          launches)
+    for mode, (record, seconds) in jobs.items():
+        records[mode], cli_s[mode] = record, seconds
     counters = ("val/true_positives", "val/false_positives",
                 "val/false_negatives", "val/total_ground_truths",
                 "val/total_predictions")
@@ -2754,7 +2900,8 @@ def distributed_phase(env: dict, preset: dict, root: str,
     numbers["cli"] = {"seconds": cli_s, "records": records}
     log(f"phase 10b torchrun --nproc_per_node {world} torch_train.py "
         f"--backend {backend}, x/640² bf16, {DIST_CLI_BATCH} images a "
-        f"device, one epoch: dp {cli_s['dp']} s, fsdp {cli_s['fsdp']} s; "
+        f"device, one epoch, the two jobs at once: dp {cli_s['dp']} s, "
+        f"fsdp {cli_s['fsdp']} s; "
         f"validation counters equal to phase 9b's single process over the "
         f"same global batches "
         f"({[records['single'][k] for k in counters]}); val loss dp "
@@ -4269,11 +4416,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 8. the trainer path
+    stamp("8")
     augmentation_phase(dev, train_ms)
     trainer_launches, _ = trainer_phase(dev, env, p)
     trainer_card_vs_cpu(env)
 
     # --------------------------------------- 9. the command-line entry points
+    stamp("9")
     root = tempfile.mkdtemp(prefix="cli_")
     try:
         cli_launches, persistence_launches, cli_numbers = cli_phase(
@@ -4286,18 +4435,30 @@ def main() -> None:
             f"this process): {json.dumps(persistence_launches)}")
 
         # ------------------ 10. distributed training and sharded serving
+        stamp("10")
         dist_launches, _ = distributed_phase(
             env, p, root, single=cli_numbers["train_record"])
 
         # ------------- 11. serving artifacts and the reference importer
+        stamp("11")
         export_launches, _ = export_phase(
             p, root, {"fused": det, "optimized": opt, "int8": q8},
             norm_batch)
 
         # --------------------------------- 12. the quality-diagnosis scripts
-        quality_launches, _ = quality_phase(root)
+        stamp("12")
+        # beside phase 14's report, whose ranks start first
+        started = start_multichip(root)
+        try:
+            quality_launches, _ = quality_phase(root)
+            # ------------------ 14. the multi-card collectives report
+            stamp("14")
+            multichip_launches, _ = multichip_phase(started)
+        finally:
+            started[0].kill()
 
         # ------------ 13. the examples, the step profiler and the soak
+        stamp("13")
         entry_launches, _ = entry_points_phase(p, root, train_busy_ms)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4324,12 +4485,16 @@ def main() -> None:
     log(f"phase 13 launches of the examples, profile and soak paths (the "
         f"scripts' calls in this process): {json.dumps(entry_launches)}")
 
+    log(f"phase 14 launches of the multichip path (the report's ranks): "
+        f"{json.dumps(multichip_launches)}")
+
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,
              "int8": int8_launches, "trainer": trainer_launches,
              "cli": cli_launches, "persistence": persistence_launches,
              "distributed": dist_launches, "export": export_launches,
-             "quality": quality_launches, **entry_launches}
+             "quality": quality_launches, **entry_launches,
+             "multichip": multichip_launches}
 
     def kernel_entry(name, counter, source, replaces, err, ms, plain, bound,
                      library):
@@ -4372,6 +4537,7 @@ def main() -> None:
                      "quant.cu", "quant.py:69", float(k7_mismatch), k7_ms,
                      k7_plain, k7_bound, None),
     ]
+    stamp("end")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -186,7 +186,10 @@ class DetectionLoss:
         if not self.global_batch:
             return value
         value = value.detach().clone()
-        dist.all_reduce(value)
+        # the span names the collective in a profile
+        # (scripts/torch_multichip_report.py)
+        with torch.profiler.record_function("collective/loss"):
+            dist.all_reduce(value)
         return value
 
     def __call__(self, preds, anchors, strides, gt_boxes, gt_labels, gt_mask

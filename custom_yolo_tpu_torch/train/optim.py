@@ -111,7 +111,9 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     norms = torch._foreach_norm(
         [t.detach().to_local().float() for t in sharded])
     sq = torch.linalg.vector_norm(torch.stack(norms)) ** 2
-    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group(FSDP_AXIS))
+    with torch.profiler.record_function("collective/grad_norm"):
+        dist.all_reduce(sq,
+                        group=sharded[0].device_mesh.get_group(FSDP_AXIS))
     return (norm ** 2 + sq).sqrt()
 
 

@@ -155,7 +155,8 @@ def _average_gradients(params) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    with torch.profiler.record_function("collective/average_gradients"):
+        dist.all_reduce(flat)
     flat /= dist.get_world_size()
     torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
         flat.split([g.numel() for g in grads]), grads)])

@@ -54,6 +54,18 @@ def _peak_rss_mb():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
 
 
+def _rss_mb():
+    """The resident set now (Linux's VmRSS), or None elsewhere."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    return None
+
+
 def _class_colors(n):
     import colorsys
     return [tuple(int(c * 255) for c in colorsys.hsv_to_rgb(
@@ -151,6 +163,9 @@ def phase_etl(root):
     stats = {}
     for split in ("train", "val"):
         t0 = time.time()
+        # the process before the split (imports included), which its peak
+        # rises from
+        before = _rss_mb()
         DataPreprocess.create_parquet_data(
             annotations_dir=ann_dir, output_dir=out_dir, output_folder=split,
             file_names=[f"instances_{split}2017.json"],
@@ -161,6 +176,8 @@ def phase_etl(root):
                      ["id", "name", "supercategory"]],
             chunk_sizes=[10_000, 50_000, 1_000], is_test=False)
         stats[split] = {"wall_s": round(time.time() - t0, 1),
+                        "rss_before_mb": None if before is None
+                        else round(before, 1),
                         "peak_rss_mb": round(_peak_rss_mb(), 1)}
         print(f"[etl] {split}: {stats[split]}", flush=True)
     return stats

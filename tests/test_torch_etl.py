@@ -21,7 +21,8 @@ from custom_yolo_tpu.data import preprocess as jax_pre
 from custom_yolo_tpu_torch.config import Config
 from custom_yolo_tpu_torch.data import coco_rle, preprocess
 
-from test_data import _compress_counts, _rle_encode_counts
+from test_data import (_compress_counts, _rle_encode_counts, _vmhwm_mb_of,
+                       _write_synthetic_coco)
 
 torch.set_num_threads(2)
 
@@ -280,3 +281,39 @@ def test_port_etl_imports_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip() == "ok"
+
+
+def test_etl_memory_bounded_at_scale(tmp_path):
+    """The port's counterpart of ``tests/test_data.py::
+    test_etl_memory_bounded_at_scale``: ~150k annotations through
+    ``create_parquet_data`` in a fresh interpreter, whose peak resident
+    memory (VmHWM) over a control interpreter that only does the imports
+    stays under the JAX test's bound, 120 MB + twice the JSON's size; six
+    shards of 5,000 images hold all 30,000 rows."""
+    ann = tmp_path / "ann"
+    ann.mkdir()
+    n = _write_synthetic_coco(str(ann / "instances_val2017.json"),
+                              30_000, 5)
+    assert n == 150_000
+    json_mb = os.path.getsize(ann / "instances_val2017.json") / 1e6
+    imports = f"""
+import sys
+sys.path.insert(0, {REPO!r})
+from custom_yolo_tpu_torch.data.preprocess import DataPreprocess
+import pandas, pyarrow, pyarrow.parquet
+"""
+    work = imports + f"""
+DataPreprocess.create_parquet_data(
+    annotations_dir={str(ann)!r}, output_dir={str(tmp_path / 'out')!r},
+    output_folder="val", file_names=["instances_val2017.json"],
+    keys={KEYS!r}, columns={COLUMNS!r},
+    chunk_sizes=[10000, 10000, 10000], is_test=False,
+    images_per_shard=5000)
+"""
+    control_mb = _vmhwm_mb_of(imports)
+    work_mb = _vmhwm_mb_of(work)
+    assert work_mb - control_mb < 120 + 2 * json_mb, (work_mb, control_mb,
+                                                      json_mb)
+    shards = glob.glob(str(tmp_path / "out" / "val" / "*.parquet"))
+    assert len(shards) == 6
+    assert sum(len(pd.read_parquet(s)) for s in shards) == 30_000

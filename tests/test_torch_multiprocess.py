@@ -69,6 +69,7 @@ job, coord, pid, args_path = (sys.argv[1], sys.argv[2], int(sys.argv[3]),
                               sys.argv[4])
 with open(args_path) as f:
     args = json.load(f)
+world = args["world"]
 out_path = f"{args['out']}.{pid}"
 
 
@@ -78,7 +79,7 @@ def save(**arrays):
 
 if job == "collectives":
     # build_kernels before the group exists would be a bug; join first
-    initialize_distributed(coord, 2, pid, device="cpu")
+    initialize_distributed(coord, world, pid, device="cpu")
     from custom_yolo_tpu_torch.eval.metrics import DetectionMetrics
     from custom_yolo_tpu_torch.parallel.collectives import (reduce_metrics,
                                                             reduce_value)
@@ -112,7 +113,7 @@ if job == "collectives":
         json.dump(result, f)
 
 elif job == "convbn":
-    initialize_distributed(coord, 2, pid, device="cpu")
+    initialize_distributed(coord, world, pid, device="cpu")
     from custom_yolo_tpu_torch.nn.blocks import ConvBN
     data = np.load(args["data"])
     rows = slice(pid * 4, (pid + 1) * 4)
@@ -131,7 +132,7 @@ elif job == "convbn":
          running_var=m.bn.running_var.numpy())
 
 elif job == "step":
-    initialize_distributed(coord, 2, pid, device="cpu")
+    initialize_distributed(coord, world, pid, device="cpu")
     from torch.distributed.tensor import DTensor
     from custom_yolo_tpu_torch.core.mesh import MeshSpec, create_mesh
     from custom_yolo_tpu_torch.models.detector import create_train_model
@@ -148,23 +149,24 @@ elif job == "step":
     optimizer = torch.optim.SGD(model.parameters(), lr=args["lr"])
     optimizer.grad_clip = 1e30
     state = TrainState.create(model, optimizer, torch.Generator())
-    mesh = create_mesh(MeshSpec.for_mode(args["mode"]))
+    mesh = create_mesh(MeshSpec(*args["mesh"]))
     state = shard_train_state(state, mesh, min_weight_size=1024)
     loss_fn = DetectionLoss(LossConfig(num_classes=args["num_classes"],
                                        assigner="tal"), global_batch=True)
     step = make_train_step(state.module, loss_fn, state.optimizer)
     data = np.load(args["batch"])
-    n = data["images"].shape[0] // 2
+    n = data["images"].shape[0] // world
     batch = shard_batch({k: data[k][pid * n:(pid + 1) * n]
                          for k in data.files}, torch.device("cpu"))
     state, metrics = step(state, batch)
     n_sharded = sum(isinstance(p, DTensor) for p in model.parameters())
+    n_whole = sum(not isinstance(p, DTensor) for p in model.parameters())
     full = state.state_dict()["model"]
     save(total_loss=metrics["total_loss"].numpy(), n_sharded=n_sharded,
-         **{k: v.numpy() for k, v in full.items()})
+         n_whole=n_whole, **{k: v.numpy() for k, v in full.items()})
 
 elif job == "fit":
-    initialize_distributed(coord, 2, pid, device="cpu")
+    initialize_distributed(coord, world, pid, device="cpu")
     from torch.distributed.tensor import DTensor
     from custom_yolo_tpu_torch.config import Config
     from custom_yolo_tpu_torch.data.dataset import DetectionDataset
@@ -226,19 +228,21 @@ def _env():
     return env
 
 
-def _spawn(tmp_path, job, timeout=300, **args):
-    """Run ``job`` of ``WORKER`` in two processes of one gloo group; returns
-    the path prefix of their output files (``<prefix>.<rank>.*``)."""
+def _spawn(tmp_path, job, timeout=300, world=2, **args):
+    """Run ``job`` of ``WORKER`` in ``world`` processes of one gloo group;
+    returns the path prefix of their output files
+    (``<prefix>.<rank>.*``)."""
     script = tmp_path / "torch_worker.py"
     script.write_text(WORKER)
     args["out"] = str(tmp_path / job)
+    args["world"] = world
     args_path = tmp_path / f"{job}_args.json"
     args_path.write_text(json.dumps(args))
     coord = f"localhost:{_free_port()}"
     procs = [subprocess.Popen(
         [sys.executable, str(script), job, coord, str(pid), str(args_path)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=_env(), cwd=REPO) for pid in (0, 1)]
+        env=_env(), cwd=REPO) for pid in range(world)]
     try:
         for p in procs:
             out, err = p.communicate(timeout=timeout)
@@ -336,20 +340,30 @@ def _sgd_batch(n=8, g=4):
             "gt_mask": np.ones((n, g), bool)}
 
 
-@pytest.mark.parametrize("mode", ["dp", "fsdp"])
+# mode -> (data, fsdp) of both meshes; the data x fsdp case runs on four
+# ranks (hybrid sharding: FSDP2 splits along fsdp and replicates along data)
+SGD_MESHES = {"dp": (2, 1), "fsdp": (1, 2), "data2xfsdp2": (2, 2)}
+
+
+@pytest.mark.parametrize("mode", list(SGD_MESHES))
 def test_two_rank_sgd_step_matches_jax_mesh(tmp_path, jax_small, mode):
     """One SGD step (lr 1e-3, TAL, so that ``score_sum`` crosses the ranks)
-    of the port on two ranks against the JAX package's step on a 2-device
-    mesh (``MeshSpec(data=2)`` / ``MeshSpec(fsdp=2)``, fsdp_min_weight_size
-    1024 in both). fsdp splits parameters, dp none.
+    of the port on two ranks (four for ``data2xfsdp2``) against the JAX
+    package's step on a mesh of the same shape (``MeshSpec(data=2)``,
+    ``MeshSpec(fsdp=2)``, ``MeshSpec(data=2, fsdp=2)``;
+    fsdp_min_weight_size 1024 in both). A mesh with an fsdp axis splits
+    some parameters and leaves others whole, dp splits none.
 
     Loss within 1e-5 relative, every parameter and BatchNorm statistic
     within atol 1e-6 / rtol 1e-4: the tolerances of
     ``tests/test_sharding.py``, which the JAX mesh step itself meets
     against its single-device step on this model at 0.90 (dp) and 0.96
     (fsdp) of the limit. Measured here: 0.81 of it at most (the first
-    stage's kernel, whose gradient sums the most terms)."""
+    stage's kernel, whose gradient sums the most terms); 0.44 in the
+    four-rank case."""
     model, variables = jax_small
+    data_size, fsdp_size = SGD_MESHES[mode]
+    world = data_size * fsdp_size
     batch = _sgd_batch()
     tx = optax.inject_hyperparams(
         lambda learning_rate: optax.sgd(learning_rate))(learning_rate=1e-3)
@@ -359,8 +373,7 @@ def test_two_rank_sgd_step_matches_jax_mesh(tmp_path, jax_small, mode):
         model, JaxDetectionLoss(JaxLossConfig(num_classes=NC,
                                               assigner="tal")),
         tx, donate=False)
-    mesh = jax_create_mesh(JaxMeshSpec(data=2) if mode == "dp"
-                           else JaxMeshSpec(fsdp=2))
+    mesh = jax_create_mesh(JaxMeshSpec(data=data_size, fsdp=fsdp_size))
     with jax.sharding.set_mesh(mesh):
         state = jax_shard_train_state(state, mesh, min_weight_size=1024)
         state, metrics = step(state, jax_shard_batch(
@@ -371,16 +384,18 @@ def test_two_rank_sgd_step_matches_jax_mesh(tmp_path, jax_small, mode):
 
     torch.save(variables, tmp_path / "variables.pt")
     np.savez(tmp_path / "batch.npz", **batch)
-    out = _spawn(tmp_path, "step", timeout=240, mode=mode, lr=1e-3,
+    out = _spawn(tmp_path, "step", timeout=240, world=world,
+                 mesh=[data_size, fsdp_size], lr=1e-3,
                  width=WIDTH, depth=DEPTH, csp=CSP, num_classes=NC,
                  variables=str(tmp_path / "variables.pt"),
                  batch=str(tmp_path / "batch.npz"))
-    got = [np.load(f"{out}.{pid}.npz") for pid in (0, 1)]
+    got = [np.load(f"{out}.{pid}.npz") for pid in range(world)]
     template = create_train_model(WIDTH, DEPTH, CSP, NC,
                                   precision="float32", device="cpu")
     want = from_jax_variables(after, template)
     for g in got:
-        assert (int(g["n_sharded"]) > 0) == (mode == "fsdp")
+        assert (int(g["n_sharded"]) > 0) == (fsdp_size > 1)
+        assert int(g["n_whole"]) > 0
         np.testing.assert_allclose(float(g["total_loss"]), loss_j,
                                    rtol=1e-5)
         for key, value in want.items():
