@@ -1,0 +1,9 @@
+"""The trained model's FLOPs (forward and backward of the unfused model,
+counted on the reference) for every image of the traced window, over
+the window, as a share of the card's bf16 dense peak."""
+
+from perfbench.readers import mfu_pct
+
+
+def read(view):
+    return mfu_pct(view, train=True)
