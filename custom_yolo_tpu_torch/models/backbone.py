@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from custom_yolo_tpu_torch.nn.blocks import PSA, SPPF, C3K2, ConvBN
+from custom_yolo_tpu_torch.utils.profiling import span
 
 
 def space_to_depth(x: torch.Tensor, r: int = 2) -> torch.Tensor:
@@ -54,6 +55,9 @@ def stem_kernel_to_s2d(kernel: np.ndarray) -> np.ndarray:
 BACKBONE_STAGES = ("p1_conv", "p2_conv", "p2_csp", "p3_conv", "p3_csp",
                    "p4_conv", "p4_csp", "p5_conv", "p5_csp", "p5_sppf",
                    "p5_psa")
+# each stage's span in a profile, under the backbone's name in the model
+# (``YoloModel.net``)
+STAGE_SPANS = {name: f"fwd/net.{name}" for name in BACKBONE_STAGES}
 
 
 class Backbone(nn.Module):
@@ -102,8 +106,13 @@ class Backbone(nn.Module):
             # the reference pads ((1, 0), (1, 0)): one row on top, one
             # column on the left
             x = F.pad(space_to_depth(x, 2), (1, 0, 1, 0))
-        p2 = self.p2_csp(self.p2_conv(self.p1_conv(x)))
-        p3 = self.p3_csp(self.p3_conv(p2))
-        p4 = self.p4_csp(self.p4_conv(p3))
-        p5 = self.p5_csp(self.p5_conv(p4))
-        return p3, p4, self.p5_psa(self.p5_sppf(p5))
+        p2 = self._stage("p2_csp", self._stage(
+            "p2_conv", self._stage("p1_conv", x)))
+        p3 = self._stage("p3_csp", self._stage("p3_conv", p2))
+        p4 = self._stage("p4_csp", self._stage("p4_conv", p3))
+        p5 = self._stage("p5_csp", self._stage("p5_conv", p4))
+        return p3, p4, self._stage("p5_psa", self._stage("p5_sppf", p5))
+
+    def _stage(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        with span(STAGE_SPANS[name]):
+            return getattr(self, name)(x)

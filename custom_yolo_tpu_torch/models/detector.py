@@ -47,6 +47,7 @@ from custom_yolo_tpu_torch.ops.quant import (DEFAULT_QUANT_SKIP,
                                              quantize_fused_params)
 from custom_yolo_tpu_torch.utils.checkpoint import (TRANSFORMS_FILE,
                                                     WEIGHTS_FILE)
+from custom_yolo_tpu_torch.utils.profiling import span
 from custom_yolo_tpu_torch.utils.weights import from_jax_variables
 
 # ImageNet normalisation (reference src/data/transforms.py:12-13)
@@ -88,9 +89,11 @@ class YoloModel(nn.Module):
     def forward(self, x: torch.Tensor):
         x = x.to(self.policy.compute_dtype).permute(0, 3, 1, 2)
         if self.remat and self.training and torch.is_grad_enabled():
-            return self.head(self._recomputed(
-                self.fpn, self._recomputed(self.net, x)))
-        return self.head(self.fpn(self.net(x)))
+            feats = self._recomputed(self.fpn, self._recomputed(self.net, x))
+        else:
+            feats = self.fpn(self.net(x))
+        with span("fwd/head"):
+            return self.head(feats)
 
     @staticmethod
     def _recomputed(module: nn.Module, x):
@@ -315,15 +318,21 @@ def serve_pipeline(model: YoloModel, images: torch.Tensor, reg_max: int,
                    class_filter: Optional[Tuple[int, ...]],
                    multi_label: bool) -> NMSResult:
     """The body of :meth:`Detector.serve` on a preprocessed NHWC batch:
-    forward → DFL decode → class-aware batched NMS. ``serve`` runs it under
-    ``inference_mode``; ``export.export_serving`` traces it."""
-    preds, anchors, strides = model(images)
-    boxes, scores = decode_raw_predictions(preds, anchors, strides, reg_max)
-    return batched_nms(boxes, scores.amax(-1), scores.argmax(-1),
-                       conf_thres=conf_thres, iou_thres=iou_thres,
-                       max_det=max_det, top_k=top_k, merge=merge,
-                       class_filter=class_filter, multi_label=multi_label,
-                       all_scores=scores if multi_label else None)
+    forward → DFL decode → class-aware batched NMS, each in its span.
+    ``serve`` runs it under ``inference_mode``; ``export.export_serving``
+    traces it, with no profiler running, so its graph holds no span."""
+    with span("serve/forward"):
+        preds, anchors, strides = model(images)
+    with span("serve/decode"):
+        boxes, scores = decode_raw_predictions(preds, anchors, strides,
+                                               reg_max)
+    with span("serve/nms"):
+        return batched_nms(boxes, scores.amax(-1), scores.argmax(-1),
+                           conf_thres=conf_thres, iou_thres=iou_thres,
+                           max_det=max_det, top_k=top_k, merge=merge,
+                           class_filter=class_filter,
+                           multi_label=multi_label,
+                           all_scores=scores if multi_label else None)
 
 
 def _has_key(tree: Mapping[str, Any], name: str) -> bool:
@@ -625,13 +634,19 @@ class Detector:
         :class:`NMSResult`. ``device_preprocess=True`` takes resized raw
         uint8 NHWC and scales and normalises it on the device (fp32, the
         arithmetic of :func:`preprocess_image`). Nothing here waits for
-        the device."""
+        the device. Under a running profiler the call carries its spans
+        (``utils.profiling.span``): ``serve`` around ``serve/input`` (the
+        copy to the device and the normalisation), ``serve/forward`` (a
+        ``fwd/<stage>`` span a stage of the model inside), ``serve/decode``
+        and ``serve/nms``."""
         assert self.model is not None, "call .init() or load weights"
-        images = torch.as_tensor(images).to(self.device)
-        if device_preprocess:
-            images = normalize_uint8(images, self._mean, self._std)
-        return serve_pipeline(self.model, images, self.reg_max,
-                              conf_thres=conf_thres, iou_thres=iou_thres,
-                              max_det=max_det, top_k=top_k, merge=merge,
-                              class_filter=class_filter,
-                              multi_label=multi_label)
+        with span("serve"):
+            with span("serve/input"):
+                images = torch.as_tensor(images).to(self.device)
+                if device_preprocess:
+                    images = normalize_uint8(images, self._mean, self._std)
+            return serve_pipeline(self.model, images, self.reg_max,
+                                  conf_thres=conf_thres, iou_thres=iou_thres,
+                                  max_det=max_det, top_k=top_k, merge=merge,
+                                  class_filter=class_filter,
+                                  multi_label=multi_label)

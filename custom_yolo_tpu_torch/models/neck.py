@@ -11,6 +11,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from custom_yolo_tpu_torch.nn.blocks import C3K2, ConvBN
+from custom_yolo_tpu_torch.utils.profiling import span
+
+# each stage's span in a profile, under the neck's name in the model
+# (``YoloModel.fpn``)
+STAGE_SPANS = {name: f"fwd/fpn.{name}" for name in
+               ("h1", "h2", "h3", "h4", "h5", "h6")}
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -38,8 +44,12 @@ class Neck(nn.Module):
     def forward(self, feats: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         p3, p4, p5 = feats
-        p4 = self.h1(torch.cat([upsample2x_nearest(p5), p4], dim=1))
-        p3 = self.h2(torch.cat([upsample2x_nearest(p4), p3], dim=1))
-        p4 = self.h4(torch.cat([self.h3(p3), p4], dim=1))
-        p5 = self.h6(torch.cat([self.h5(p4), p5], dim=1))
+        p4 = self._stage("h1", torch.cat([upsample2x_nearest(p5), p4], dim=1))
+        p3 = self._stage("h2", torch.cat([upsample2x_nearest(p4), p3], dim=1))
+        p4 = self._stage("h4", torch.cat([self._stage("h3", p3), p4], dim=1))
+        p5 = self._stage("h6", torch.cat([self._stage("h5", p4), p5], dim=1))
         return p3, p4, p5
+
+    def _stage(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        with span(STAGE_SPANS[name]):
+            return getattr(self, name)(x)

@@ -28,6 +28,7 @@ from custom_yolo_tpu_torch.ops.boxes import (bbox2dist, box_ciou,
 from custom_yolo_tpu_torch.ops.dfl import dfl_decode
 from custom_yolo_tpu_torch.train.assigner import (nearest_center_assign,
                                                   task_aligned_assign)
+from custom_yolo_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +189,7 @@ class DetectionLoss:
         value = value.detach().clone()
         # the span names the collective in a profile
         # (scripts/torch_multichip_report.py)
-        with torch.profiler.record_function("collective/loss"):
+        with span("collective/loss"):
             dist.all_reduce(value)
         return value
 
@@ -240,8 +241,9 @@ class DetectionLoss:
         g = gt_boxes.shape[1]
         rm = cfg.reg_max
 
-        assign = nearest_center_assign(
-            gt_boxes[..., :2], pred_xywh_px[..., :2], gt_mask)
+        with span("train/assign"):
+            assign = nearest_center_assign(
+                gt_boxes[..., :2], pred_xywh_px[..., :2], gt_mask)
         idx = assign.anchor_idx                               # (N, G)
 
         matched_xywh = torch.gather(
@@ -307,12 +309,13 @@ class DetectionLoss:
         gt_xyxy = xywh2xyxy(gt_boxes)
 
         # the assigner's inputs carry no gradient
-        asn = task_aligned_assign(
-            torch.sigmoid(pred_logits).detach(), pred_xyxy_px.detach(),
-            anchor_px, gt_xyxy, gt_labels, gt_mask,
-            num_classes=cfg.num_classes, topk=cfg.tal_topk,
-            alpha=cfg.tal_alpha, beta=cfg.tal_beta,
-            dense_scores=not cfg.sparse_targets)
+        with span("train/assign"):
+            asn = task_aligned_assign(
+                torch.sigmoid(pred_logits).detach(), pred_xyxy_px.detach(),
+                anchor_px, gt_xyxy, gt_labels, gt_mask,
+                num_classes=cfg.num_classes, topk=cfg.tal_topk,
+                alpha=cfg.tal_alpha, beta=cfg.tal_beta,
+                dense_scores=not cfg.sparse_targets)
 
         score_sum = self._global_sum(asn.anchor_scores.sum()).clamp_min(1.0)
 

@@ -18,6 +18,7 @@ from torch.distributed.tensor import DTensor
 
 from custom_yolo_tpu_torch.config import TrainingConfig
 from custom_yolo_tpu_torch.core.mesh import FSDP_AXIS
+from custom_yolo_tpu_torch.utils.profiling import span
 
 
 class PlateauState(NamedTuple):
@@ -111,7 +112,7 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     norms = torch._foreach_norm(
         [t.detach().to_local().float() for t in sharded])
     sq = torch.linalg.vector_norm(torch.stack(norms)) ** 2
-    with torch.profiler.record_function("collective/grad_norm"):
+    with span("collective/grad_norm"):
         dist.all_reduce(sq,
                         group=sharded[0].device_mesh.get_group(FSDP_AXIS))
     return (norm ** 2 + sq).sqrt()

@@ -28,6 +28,7 @@ from custom_yolo_tpu_torch.train.optim import (clip_by_global_norm_,
                                                global_norm, local_tensors,
                                                set_learning_rate)
 from custom_yolo_tpu_torch.train.train_state import TrainState, full_tensor
+from custom_yolo_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -66,21 +67,31 @@ def make_train_step(model: nn.Module, loss_fn: DetectionLoss,
 
     ``model`` is what the forward calls: the state's ``module`` under dp
     (DDP), else the model itself.
+
+    Under a running profiler the step carries its spans
+    (``utils.profiling.span``): ``train/step`` around ``train/forward``,
+    ``train/loss`` (the assigner's ``train/assign`` inside) and
+    ``train/backward`` a microbatch, then ``train/clip`` (the gradient
+    average, the global norm and the clip), ``train/optimizer`` and
+    ``train/ema``.
     """
     params = [p for p in model.parameters() if p.requires_grad]
 
     def forward_backward(batch: Batch, sync: bool
                          ) -> Dict[str, torch.Tensor]:
         with _gradient_sync(model, sync):
-            preds, anchors, strides = model(batch["images"])
-            loss, metrics = loss_fn(preds, anchors, strides,
-                                    batch["gt_boxes"], batch["gt_labels"],
-                                    batch["gt_mask"])
-            loss.backward()
+            with span("train/forward"):
+                preds, anchors, strides = model(batch["images"])
+            with span("train/loss"):
+                loss, metrics = loss_fn(preds, anchors, strides,
+                                        batch["gt_boxes"], batch["gt_labels"],
+                                        batch["gt_mask"])
+            with span("train/backward"):
+                loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: TrainState, batch: Batch
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def step(state: TrainState, batch: Batch
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if ema_decay > 0.0 and state.ema is None:
             raise ValueError("ema_decay set but the state was created "
                              "without ema=True")
@@ -104,31 +115,40 @@ def make_train_step(model: nn.Module, loss_fn: DetectionLoss,
                                 accumulate_steps)
             metrics = {k: torch.stack([m[k] for m in seq]).mean()
                        for k in seq[0]}
-        _average_gradients(state.replicated)
-        grads = [p.grad for p in params]
-        norm = global_norm(grads)
-        metrics["grad_norm"] = norm
-        clip_by_global_norm_(grads, norm, optimizer.grad_clip)
+        with span("train/clip"):
+            _average_gradients(state.replicated)
+            grads = [p.grad for p in params]
+            norm = global_norm(grads)
+            metrics["grad_norm"] = norm
+            clip_by_global_norm_(grads, norm, optimizer.grad_clip)
 
-        base_lr = current_learning_rate(optimizer)
-        if warmup_steps > 0:
-            set_learning_rate(optimizer, base_lr * min(
-                (state.step + 1) / warmup_steps, 1.0))
-        optimizer.step()
-        if warmup_steps > 0:
-            # the base (plateau-owned) learning rate stays in the optimizer
-            set_learning_rate(optimizer, base_lr)
+        with span("train/optimizer"):
+            base_lr = current_learning_rate(optimizer)
+            if warmup_steps > 0:
+                set_learning_rate(optimizer, base_lr * min(
+                    (state.step + 1) / warmup_steps, 1.0))
+            optimizer.step()
+            if warmup_steps > 0:
+                # the base (plateau-owned) learning rate stays in the
+                # optimizer
+                set_learning_rate(optimizer, base_lr)
 
         if ema_decay > 0.0:
-            d = ema_decay * (1.0 - math.exp(-(state.step + 1) / ema_tau))
-            live = state.variables
-            keys = list(state.ema)
-            # ema + (1 − d)·(value − ema), shard by shard
-            torch._foreach_lerp_(local_tensors(state.ema[k] for k in keys),
-                                 local_tensors(live[k] for k in keys),
-                                 1.0 - d)
+            with span("train/ema"):
+                d = ema_decay * (1.0 - math.exp(-(state.step + 1) / ema_tau))
+                live = state.variables
+                keys = list(state.ema)
+                # ema + (1 − d)·(value − ema), shard by shard
+                torch._foreach_lerp_(
+                    local_tensors(state.ema[k] for k in keys),
+                    local_tensors(live[k] for k in keys), 1.0 - d)
         state.step += 1
         return state, metrics
+
+    def train_step(state: TrainState, batch: Batch
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("train/step"):
+            return step(state, batch)
 
     return train_step
 
@@ -155,7 +175,7 @@ def _average_gradients(params) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    with torch.profiler.record_function("collective/average_gradients"):
+    with span("collective/average_gradients"):
         dist.all_reduce(flat)
     flat /= dist.get_world_size()
     torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(

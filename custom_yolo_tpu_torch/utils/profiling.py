@@ -1,8 +1,9 @@
 """Profiling (counterpart of ``custom_yolo_tpu/utils/profiling.py``):
 ``trace`` captures a ``torch.profiler`` trace of a block into a Chrome
-trace file (viewable in Perfetto or ``chrome://tracing``), ``time_fn``
-times a function with the device synchronised, and ``kernel_launches``
-reads the launch counts of the port's hand-written kernels."""
+trace file (viewable in Perfetto or ``chrome://tracing``), ``span`` names
+a block of the port's hot path in such a trace, ``time_fn`` times a
+function with the device synchronised, and ``kernel_launches`` reads the
+launch counts of the port's hand-written kernels."""
 
 from __future__ import annotations
 
@@ -18,6 +19,18 @@ from custom_yolo_tpu_torch.ops import (attention, head_kernel, nms_kernel,
                                        quant_kernel, sppf_kernel)
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that names the enclosed block ``name`` in a
+    running ``torch.profiler`` capture: a ``record_function``, recorded as
+    a ``user_annotation`` event on the capture's clock beside the card's
+    kernels. With no profiler running it is a shared no-op, and the call
+    costs one check of the profiler's state."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

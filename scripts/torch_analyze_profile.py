@@ -12,12 +12,15 @@ number of profiled steps. Each device event is attributed by its
 call to the CPU ops and annotations that enclose it on its thread:
 
 * phase: ``bwd`` under an ``autograd::engine::evaluate_function:`` op,
-  ``optimizer`` under torch.optim's ``Optimizer.step#…`` annotation,
-  ``loss/assign`` under the profile script's span of the loss, ``fwd``
-  under its span of a model stage (``fwd/<layer>``), ``other`` elsewhere
-  (``zero_grad``, the global norm and its clipping, the batch's copies);
-* layer: the stage's span for ``fwd``; for ``bwd`` the span of the
-  forward op with the backward op's autograd sequence number;
+  ``optimizer`` under torch.optim's ``Optimizer.step#…`` annotation or
+  the step's ``train/clip``, ``train/optimizer`` and ``train/ema`` spans
+  (the global norm and its clipping, AdamW, the EMA), ``loss`` under the
+  step's ``train/loss`` span, ``fwd`` under a model stage's span
+  (``fwd/<layer>``), ``other`` elsewhere (``zero_grad``, the batch's
+  copies); the spans are the port's own (``utils.profiling.span``);
+* layer: the stage's span for ``fwd`` (``net.<stage>``, ``fpn.<stage>``,
+  ``head``); for ``bwd`` the span of the forward op with the backward
+  op's autograd sequence number;
 * family: by kernel name, the port's hand-written kernels (K1-K7, by
   their ``csrc`` names) first.
 
@@ -46,9 +49,10 @@ import os
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 HOST_CATS = ("cpu_op", "user_annotation")
-# the spans that scripts/torch_profile.py opens
+# the port's spans of the step and the model's stages
 FWD_PREFIX = "fwd/"
-LOSS_SPAN = "loss/assign"
+LOSS_SPAN = "train/loss"
+OPTIMIZER_SPANS = ("train/clip", "train/optimizer", "train/ema")
 BWD_PREFIX = "autograd::engine::evaluate_function:"
 OPTIMIZER_PREFIX = "Optimizer.step#"
 PORT_FAMILY = "port kernels (K1-K7)"
@@ -138,10 +142,11 @@ def phase_of(stack):
     names = [e["name"] for e in stack]
     if any(n.startswith(BWD_PREFIX) for n in names):
         return "bwd"
-    if any(n.startswith(OPTIMIZER_PREFIX) for n in names):
+    if any(n.startswith(OPTIMIZER_PREFIX) or n in OPTIMIZER_SPANS
+           for n in names):
         return "optimizer"
     if LOSS_SPAN in names:
-        return "loss/assign"
+        return "loss"
     if any(n.startswith(FWD_PREFIX) for n in names):
         return "fwd"
     return "other"

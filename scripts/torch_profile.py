@@ -6,11 +6,12 @@ trace of the CPU's and the card's activity (Perfetto,
 
 The step is the port's (``create_train_model``, ``build_optimizer``,
 ``TrainState.create``, ``make_train_step``) on the JAX script's seeded
-synthetic batch. One warm-up step runs outside the capture. Spans mark
-the phases and layers for the digest: ``fwd/<layer>`` around each
-top-level stage's forward (the backbone's stages, ``fpn``, ``head``) and
-``loss/assign`` around the loss, opened from hooks this script adds; the
-backward and optimizer carry autograd's and torch.optim's own.
+synthetic batch. One warm-up step runs outside the capture. The phases
+and layers the digest reads are the port's own spans: the step's
+(``train/step``, ``train/forward``, ``train/loss``, ``train/backward``,
+``train/clip``, ``train/optimizer``, ``train/ema``) and each model
+stage's (``fwd/net.<stage>``, ``fwd/fpn.<stage>``, ``fwd/head``); the
+backward and optimizer carry autograd's and torch.optim's own too.
 
 Usage:
   python scripts/torch_profile.py --config configs/config.yaml --preset x \\
@@ -32,10 +33,6 @@ if sys.path and os.path.abspath(sys.path[0] or ".") == os.path.join(
 elif REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-# the spans that scripts/torch_analyze_profile.py reads
-FWD_PREFIX = "fwd/"
-LOSS_SPAN = "loss/assign"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -49,32 +46,6 @@ def parse_args(argv=None):
     p.add_argument("--max_gt", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
-
-
-def span_stages(model):
-    """Open a ``fwd/<layer>`` span around the forward of each top-level
-    stage (each backbone stage, the neck, the head); returns the hooks'
-    handles."""
-    from torch.profiler import record_function
-
-    stages = [(f"net/{name}", module)
-              for name, module in model.net.named_children()]
-    stages += [("fpn", model.fpn), ("head", model.head)]
-    handles = []
-    for name, module in stages:
-        spans = []
-
-        def enter(_module, _inputs, name=name, spans=spans):
-            span = record_function(FWD_PREFIX + name)
-            span.__enter__()
-            spans.append(span)
-
-        def leave(_module, _inputs, _output, spans=spans):
-            spans.pop().__exit__(None, None, None)
-
-        handles += [module.register_forward_pre_hook(enter),
-                    module.register_forward_hook(leave)]
-    return handles
 
 
 def synthetic_batch(batch_size, input_size, max_gt, num_classes):
@@ -97,7 +68,6 @@ def main(argv=None):
     args = parse_args(argv)
 
     import torch
-    from torch.profiler import record_function
 
     from custom_yolo_tpu_torch.config import Config
     from custom_yolo_tpu_torch.models.detector import create_train_model
@@ -126,13 +96,7 @@ def main(argv=None):
                               torch.Generator().manual_seed(1))
     loss_fn = DetectionLoss(LossConfig(num_classes=nc,
                                        assigner=args.assigner or "nearest"))
-
-    def spanned_loss(*inputs):
-        with record_function(LOSS_SPAN):
-            return loss_fn(*inputs)
-
-    step = make_train_step(model, spanned_loss, optimizer)
-    span_stages(model)
+    step = make_train_step(model, loss_fn, optimizer)
 
     batch = {k: torch.from_numpy(v).to(device) for k, v in synthetic_batch(
         args.batch_size, tuple(cfg.model.input_size),

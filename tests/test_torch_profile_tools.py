@@ -1,10 +1,11 @@
 """``scripts/torch_analyze_profile.py`` on a hand-written Chrome trace
 (GPU kernels, a copy and a memset, ``cudaLaunchKernel`` and
 ``cuLaunchKernel`` launches on two host threads, CPU ops with autograd
-sequence numbers, the profile script's spans and torch.optim's
-annotation): its per-step tables exactly; and ``scripts/torch_profile.py``
-on the CPU at n/64² B=2, whose trace the digest splits into the train
-step's phases."""
+sequence numbers, the port's spans of the step and the model's stages and
+torch.optim's annotation): its per-step tables exactly; and
+``scripts/torch_profile.py`` on the CPU at n/64² B=2, whose trace (the
+port's own spans, no hooks) the digest splits into the train step's
+phases."""
 
 import json
 import os
@@ -43,7 +44,7 @@ EVALUATE = "autograd::engine::evaluate_function: "
 TRACE = [
     {"ph": "M", "name": "process_name", "pid": 7, "args": {"name": "x"}},
     # forward: a convolution in the stem's span, an attention in the head's
-    annotation("fwd/net/p1_conv", 0, 100),
+    annotation("fwd/net.p1_conv", 0, 100),
     host("aten::conv2d", 10, 50, **{"Sequence number": 5,
                                     "flops": 2_000_000_000}),
     host("aten::cudnn_convolution", 15, 40),
@@ -54,7 +55,7 @@ TRACE = [
          **{"Sequence number": 6}),
     launch(112, 2),
     # the loss
-    annotation("loss/assign", 150, 50),
+    annotation("train/loss", 150, 50),
     host("aten::topk", 160, 20, **{"Sequence number": 7}),
     launch(165, 3),
     # a copy outside every span
@@ -72,6 +73,10 @@ TRACE = [
     host(EVALUATE + "TopkBackward0", 385, 10, tid=2,
          **{"Sequence number": 7}),
     launch(387, 9, tid=2),
+    # the gradient's norm, in the step's clip span
+    annotation("train/clip", 396, 4),
+    host("aten::_foreach_norm", 396, 3),
+    launch(397, 11),
     # the optimizer, one kernel through cuLaunchKernel
     annotation("Optimizer.step#Optimizer.step", 400, 100),
     host("aten::_foreach_add_", 410, 20),
@@ -89,6 +94,7 @@ TRACE = [
     device("void psa_attention_bwd_dq_tc<64>(bf16 const*)", 370, 8, 6),
     device("void at::native::vectorized_elementwise_kernel<4>()", 390, 4,
            9),
+    device("void at::native::reduce_kernel<512, 1>()", 395, 3, 11),
     device("void at::native::multi_tensor_apply_kernel<>()", 450, 7, 7),
 ]
 
@@ -105,24 +111,24 @@ def test_digest_of_a_hand_written_trace(tmp_path, capsys):
     (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": TRACE}))
     got = load_script("torch_analyze_profile").main(
         ["--dir", str(tmp_path), "--steps", str(STEPS)])
-    total = 2 + 40 + 10 + 20 + 5 + 30 + 6 + 8 + 4 + 7
-    assert got["on_device"] and got["events"] == 10
+    total = 2 + 40 + 10 + 20 + 5 + 30 + 6 + 8 + 4 + 3 + 7
+    assert got["on_device"] and got["events"] == 11
     assert got["total_ms"] == pytest.approx(ms(total), abs=1e-12)
     assert got["wall_ms"] == pytest.approx(ms(500), abs=1e-12)
     assert rows(got["phase"]) == {
-        "fwd": (ms(52), 3), "bwd": (ms(48), 4), "loss/assign": (ms(20), 1),
-        "optimizer": (ms(7), 1), "other": (ms(5), 1)}
+        "fwd": (ms(52), 3), "bwd": (ms(48), 4), "loss": (ms(20), 1),
+        "optimizer": (ms(10), 2), "other": (ms(5), 1)}
     assert sum(r[1] for r in got["phase"]) == pytest.approx(
         got["total_ms"], abs=1e-12)
     assert rows(got["phase_layer"]) == {
-        ("fwd", "net/p1_conv"): (ms(42), 2), ("fwd", "head"): (ms(10), 1),
-        ("bwd", "net/p1_conv"): (ms(36), 2), ("bwd", "head"): (ms(8), 1),
-        ("bwd", "-"): (ms(4), 1), ("loss/assign", "-"): (ms(20), 1),
-        ("optimizer", "-"): (ms(7), 1), ("other", "-"): (ms(5), 1)}
+        ("fwd", "net.p1_conv"): (ms(42), 2), ("fwd", "head"): (ms(10), 1),
+        ("bwd", "net.p1_conv"): (ms(36), 2), ("bwd", "head"): (ms(8), 1),
+        ("bwd", "-"): (ms(4), 1), ("loss", "-"): (ms(20), 1),
+        ("optimizer", "-"): (ms(10), 2), ("other", "-"): (ms(5), 1)}
     assert rows(got["family"]) == {
         "cuDNN convolution": (ms(70), 2), "port kernels (K1-K7)": (ms(18), 2),
         "sort/select/index": (ms(20), 1), "copy/memset": (ms(7), 2),
-        "BatchNorm": (ms(6), 1),
+        "BatchNorm": (ms(6), 1), "reduction": (ms(3), 1),
         "multi-tensor (optimizer, norm, clip)": (ms(7), 1),
         "elementwise": (ms(4), 1)}
     assert got["port_kernels"] == {"K1 psa_attention_fwd": 1,
@@ -146,7 +152,8 @@ def test_digest_of_a_hand_written_trace(tmp_path, capsys):
 
 def test_profile_on_the_cpu_splits_the_step(tmp_path):
     """n/64² B=2, two steps: the trace carries FLOPs, and ≥ 90% of the
-    ops' self time falls in fwd, bwd, loss/assign and optimizer."""
+    ops' self time falls in fwd, bwd, loss and optimizer, and the layers
+    are the port's stage spans."""
     with open(os.path.join(REPO, "configs", "config.yaml")) as f:
         raw = yaml.safe_load(f)
     raw["model"]["input_size"] = [64, 64]
@@ -163,11 +170,11 @@ def test_profile_on_the_cpu_splits_the_step(tmp_path):
         ["--dir", result["profile_dir"], "--steps", "2"])
     assert not got["on_device"]
     phases = {key: t_ms for key, t_ms, *_ in got["phase"]}
-    assert set(phases) == {"fwd", "bwd", "loss/assign", "optimizer",
-                           "other"}
+    assert set(phases) == {"fwd", "bwd", "loss", "optimizer", "other"}
     assert (sum(phases.values()) - phases["other"]) >= 0.9 * got["total_ms"]
-    assert all(phases[p] > 0 for p in ("fwd", "bwd", "loss/assign",
-                                       "optimizer"))
+    assert all(phases[p] > 0 for p in ("fwd", "bwd", "loss", "optimizer"))
     layers = {key for key, *_ in got["phase_layer"]}
     assert ("fwd", "head") in layers and ("bwd", "head") in layers
+    assert {layer.split(".")[0] for phase, layer in layers
+            if phase == "fwd"} == {"net", "fpn", "head"}
     assert next(r[3] for r in got["phase"] if r[0] == "fwd") > 0
