@@ -71,6 +71,15 @@ x/640² bf16 on four ranks (data 2 × fsdp 2, hybrid sharding), holds each
 source's collectives to the modules' prediction and its two steps to the
 same steps on one card; its ranks' launch counts make the ``multichip``
 path, and its report is printed.
+Phase 15 holds ``Detector.serve``'s CUDA graphs to the eager path: the
+card tests of ``tests/test_torch_serve_graph.py`` in a child ``pytest``
+(graph and eager bit for bit at x/640² B=8 uint8 and float, n/640² B=64,
+``inference`` at B=1, three batches in flight, dynamic and static int8,
+the optimised model with K6, ``make_sharded_serve_fn`` on side streams,
+a capture that fails), then x/640² B=8 timed eager against graph: a
+call's CUDA events, the pace of the benchmark's closed loop (two batches
+in flight) and the device's busy time and events a call in a profiler
+trace, with the hit share and the launch counts before and after.
 Any failed check ends the run with a non-zero exit. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as ``nvidia-smi`` reports them.
@@ -106,7 +115,8 @@ from custom_yolo_tpu_torch.models.detector import (IMAGENET_MEAN,
                                                    IMAGENET_STD,
                                                    create_train_model,
                                                    decode_raw_predictions,
-                                                   normalize_uint8)
+                                                   normalize_uint8,
+                                                   serve_pipeline)
 from custom_yolo_tpu_torch.models.head import CLS_BIAS
 from custom_yolo_tpu_torch.ops import (attention, head_kernel, nms_kernel,
                                        quant, quant_kernel, sppf_kernel)
@@ -122,7 +132,9 @@ from custom_yolo_tpu_torch.train.train_step import (make_eval_step,
 from custom_yolo_tpu_torch.train.trainer import Trainer
 from custom_yolo_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                     host_copy)
-from custom_yolo_tpu_torch.utils.profiling import kernel_wrappers
+from custom_yolo_tpu_torch.utils.profiling import (kernel_launches,
+                                                   kernel_wrappers,
+                                                   serve_graph_stats)
 from custom_yolo_tpu_torch.utils.torch_port import to_torch_state_dict
 
 SEED = 0
@@ -267,12 +279,13 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_call(fn, reps: int = 5) -> dict:
+def profile_call(fn, reps: int = 5, span_names: tuple = ()) -> dict:
     """Device busy share of ``reps`` calls of ``fn`` under torch.profiler,
     and the kernels that took the most device time. Busy time is the union
     of the kernel, copy and memset intervals of the trace; the window is
     the host's clock from the first call to the end of the last (the
-    profiler's own host cost included)."""
+    profiler's own host cost included). ``span_names``: the port's
+    spans whose device ms a call to report (:func:`span_device_ms`)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -309,10 +322,44 @@ def profile_call(fn, reps: int = 5) -> dict:
         by_category[category] = (total + ms / reps, n + count // reps)
     return {"calls": reps, "window_ms": window_ms, "device_busy_ms": busy_ms,
             "idle_share": (1 - busy_ms / window_ms) if spans else None,
+            "span_device_ms": span_device_ms(events, span_names, reps),
             "kernels_per_call": sum(c for _, c in by_name.values()) / reps,
             "by_category_ms_launches": by_category,
             "top": [[name[:80], ms / reps, count // reps]
                     for name, (ms, count) in top]}
+
+
+def span_device_ms(events: list, names: tuple, reps: int) -> dict:
+    """Device ms a call of the kernels, copies and memsets launched inside
+    each span of ``names`` in a Chrome trace's ``events``: a device event
+    belongs to the span that encloses its launch (the runtime call of the
+    same correlation id) on the launching thread. A graph's kernels
+    correlate to the ``cudaGraphLaunch`` that replayed them."""
+    launches, opened = {}, []
+    for e in events:
+        cat = e.get("cat")
+        if cat in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launches[corr] = (e.get("tid"), float(e["ts"]))
+        elif cat == "user_annotation" and e.get("name") in names:
+            lo = float(e["ts"])
+            opened.append((e.get("tid"), lo, lo + float(e["dur"]),
+                           e["name"]))
+    ms = dict.fromkeys(names, 0.0)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") \
+                or "dur" not in e:
+            continue
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        if launch is None:
+            continue
+        tid, ts = launch
+        for span_tid, lo, hi, name in opened:
+            if span_tid == tid and lo <= ts <= hi:
+                ms[name] += float(e["dur"]) / 1e3 / reps
+                break
+    return ms
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -3078,6 +3125,157 @@ def export_phase(preset: dict, root: str, detectors: dict,
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serve's CUDA graphs (models/serve_graph.py) against the eager
+# path. The card tests run in a child pytest without tests/conftest.py,
+# which imports JAX; a call's timings, four rounds in turns.
+GRAPH_TESTS = "tests/test_torch_serve_graph.py"
+GRAPH_ROUNDS = 4
+SERVE_SPANS = ("serve/input", "serve/forward", "serve/decode", "serve/nms")
+# batches of the closed loop a round, two in flight as in the benchmark
+GRAPH_LOOP = 60
+
+
+def closed_loop_ms(fn, n: int = GRAPH_LOOP, inflight: int = 2) -> float:
+    """Host ms a batch of ``n`` calls of ``fn`` in a closed loop: each
+    result fetched to the host once ``inflight`` newer ones are
+    dispatched, as ``perfbench/traffic/serve.py`` drives ``serve``."""
+    fn().num_valid.cpu()
+    queue = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        queue.append(fn())
+        if len(queue) > inflight:
+            queue.pop(0).num_valid.cpu()
+    for res in queue:
+        res.num_valid.cpu()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def serve_graph_phase() -> tuple:
+    """Phase 15: the card tests of ``GRAPH_TESTS``, then x/640² B=8
+    (fused, pinned uint8, ``device_preprocess``) eager against graph, the
+    device ms of each serve phase eager against replayed, and
+    ``make_sharded_serve_fn`` with the card listed twice (its two slices
+    replayed one after the other) against one graph call. Returns the
+    launches the phase counted in this process and its numbers."""
+    from custom_yolo_tpu_torch.parallel.serve import make_sharded_serve_fn
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+         "no:cacheprovider", "-W", "ignore::pytest.PytestUnknownMarkWarning",
+         "-m", "card", os.path.join(REPO, GRAPH_TESTS)],
+        capture_output=True, text=True, cwd=REPO)
+    tail = (proc.stdout + proc.stderr)[-4000:]
+    log(f"phase 15a pytest -m card {GRAPH_TESTS} "
+        f"({time.perf_counter() - t0:.1f} s), exit {proc.returncode}:\n"
+        f"{tail}")
+    passed = re.search(r"(\d+) passed", proc.stdout)
+    check(proc.returncode == 0 and passed is not None
+          and "skipped" not in proc.stdout,
+          "phase 15a: the card tests of serve's CUDA graphs failed or "
+          "skipped")
+
+    launches_before, stats_before = kernel_launches(), serve_graph_stats()
+    p = PRESETS["x"]
+    det = Detector(p["width"], p["depth"], p["csp"], NUM_CLASSES,
+                   precision="bfloat16", input_size=(HW, HW), device="cuda")
+    det.init(SEED)
+    det.fuse()
+    gen = torch.Generator().manual_seed(SEED + 15)
+    batch = torch.randint(0, 256, (SERVE_BATCH, HW, HW, 3), generator=gen,
+                          dtype=torch.uint8).pin_memory()
+    opts = dict(conf_thres=POOL_CONF, iou_thres=0.45, max_det=300,
+                top_k=1024, merge=False, class_filter=None,
+                multi_label=False)
+
+    made = {"eager": 0, "graph": 0, "sharded": 0}
+    shard_fn = make_sharded_serve_fn(det, ["cuda:0", "cuda:0"],
+                                     device_preprocess=True, **opts)
+
+    @torch.inference_mode()
+    def eager():
+        made["eager"] += 1
+        return serve_pipeline(det.model, det._input(batch, True),
+                              det.reg_max, **opts)
+
+    def graph():
+        made["graph"] += 1
+        return det.serve(batch, device_preprocess=True, **opts)
+
+    def sharded():
+        made["sharded"] += 1
+        return shard_fn(batch)
+
+    want, got = eager(), graph()
+    for _ in range(2):
+        got = graph()
+    torch.cuda.synchronize()
+    for name, a, b in zip(want._fields, want, got):
+        check(torch.equal(a, b), f"phase 15b: graph serve's {name} "
+              f"differs from the eager path's")
+    rounds = {"event_ms": {"eager": [], "graph": []},
+              "loop_ms": {"eager": [], "graph": []}}
+    for _ in range(GRAPH_ROUNDS):
+        for name, fn in (("eager", eager), ("graph", graph)):
+            rounds["event_ms"][name].append(time_ms(fn))
+            rounds["loop_ms"][name].append(closed_loop_ms(fn))
+    profiles = {name: profile_call(fn, reps=10, span_names=SERVE_SPANS)
+                for name, fn in (("eager", eager), ("graph", graph))}
+    # held as phase 10c holds it: its B/2 slices may take other cuDNN
+    # algorithms than the whole batch
+    got = sharded()
+    v = want.valid
+    check(all(torch.equal(a, b) for a, b in zip(want[2:], got[2:]))
+          and torch.allclose(got.boxes[v], want.boxes[v], rtol=1e-5,
+                             atol=1e-4)
+          and torch.allclose(got.scores[v], want.scores[v], rtol=1e-5,
+                             atol=1e-6),
+          "phase 15b: the sharded serve differs from the eager path "
+          "beyond phase 10c's tolerances")
+    rounds["sharded_ms"] = []
+    for _ in range(GRAPH_ROUNDS):
+        rounds["sharded_ms"].append(time_ms(sharded))
+    numbers = {
+        "card": card_line(), "batch": SERVE_BATCH, "rounds": rounds,
+        "median": {k: ({n: statistics.median(v) for n, v in d.items()}
+                       if isinstance(d, dict) else statistics.median(d))
+                   for k, d in rounds.items()},
+        "device_busy_ms": {n: prof["device_busy_ms"] / prof["calls"]
+                           for n, prof in profiles.items()},
+        "span_device_ms": {n: prof["span_device_ms"]
+                           for n, prof in profiles.items()},
+        "events_per_call": {n: prof["kernels_per_call"]
+                            for n, prof in profiles.items()},
+        "idle_share": {n: prof["idle_share"]
+                       for n, prof in profiles.items()}}
+    check(numbers["events_per_call"]["graph"]
+          >= numbers["events_per_call"]["eager"],
+          f"phase 15b: the trace holds fewer device events a graph call "
+          f"than an eager one: {numbers['events_per_call']}")
+    stats = serve_graph_stats()
+    calls = stats["serve_calls"] - stats_before["serve_calls"]
+    replays = stats["replays"] - stats_before["replays"]
+    numbers["hit_share"] = replays / calls
+    numbers["serve_graph_stats"] = stats
+    now = kernel_launches()
+    launches = {k: now[k] - launches_before[k] for k in now}
+    total = made["eager"] + made["graph"] + 2 * made["sharded"]
+    check(launches == counts(attention=2 * total, sppf=total,
+                             nms_batched=total),
+          f"phase 15b: {made} calls counted the launches {launches}; want "
+          f"K1 twice, K5 and K2 once a call (two a sharded call), replays "
+          f"included")
+    numbers["calls"] = made
+    log(f"phase 15b serve x/640² B={SERVE_BATCH} eager against graph: "
+        f"{json.dumps(numbers)}; kernel launches before {launches_before}, "
+        f"after {now}")
+    del det
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU")
@@ -4487,6 +4685,12 @@ def main() -> None:
 
     log(f"phase 14 launches of the multichip path (the report's ranks): "
         f"{json.dumps(multichip_launches)}")
+
+    # ----------------------------------------------- 15. serve's CUDA graphs
+    stamp("15")
+    serve_graph_phase()
+    log(f"serve's CUDA graphs over the whole run: "
+        f"{json.dumps(serve_graph_stats())}")
 
     paths = {"serve": launches, "train": train_launches,
              "serve_optimized": opt_launches, "eval": eval_launches,

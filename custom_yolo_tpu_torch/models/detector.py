@@ -11,8 +11,10 @@ convs), ``quantize`` and ``calibrate`` (int8 serving, dynamic then
 static), ``save_weights`` and ``load_weights`` (the weights and the
 transforms that made them, on disk), ``__call__`` (raw head output),
 ``serve``
-(forward + DFL decode + class-aware batched NMS, fixed-shape result) and
-``inference`` (one image in, ``(n, 6)`` detections out).
+(forward + DFL decode + class-aware batched NMS, fixed-shape result,
+replayed as CUDA graphs from a signature's second call:
+``models.serve_graph``) and ``inference`` (one image in, ``(n, 6)``
+detections out).
 :func:`create_train_model` gives the unfused model in training mode for
 the train step.
 """
@@ -36,6 +38,8 @@ from custom_yolo_tpu_torch.models.backbone import (BACKBONE_STAGES,
                                                    stem_kernel_to_s2d)
 from custom_yolo_tpu_torch.models.head import CLS_BIAS, Head
 from custom_yolo_tpu_torch.models.neck import Neck
+from custom_yolo_tpu_torch.models.serve_graph import (Phase, ServeGraphs,
+                                                      run_phases)
 from custom_yolo_tpu_torch.nn.blocks import (BN_EPS, MERGE_MIN_HALF,
                                              _QuantConv, frozen_statistics)
 from custom_yolo_tpu_torch.ops.boxes import dist2bbox
@@ -277,14 +281,16 @@ def preprocess_image(image, input_size: Tuple[int, int] = (640, 640),
 
 
 def normalize_uint8(images: torch.Tensor, mean: torch.Tensor,
-                    std: torch.Tensor) -> torch.Tensor:
+                    std: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Resized uint8 NHWC → the model's normalised fp32 input, the
-    arithmetic of :func:`preprocess_image`: ÷255, minus ``mean``, ÷``std``.
+    arithmetic of :func:`preprocess_image`: ÷255, minus ``mean``, ÷``std``
+    (the last division written into ``out`` where given).
     255 is a tensor on the images' device: CUDA turns a division by a
     Python number into a multiplication by its reciprocal, which misses the
     correctly rounded quotient for about half of the 256 levels."""
     x = images.float()
-    return (x / x.new_full((), 255.0) - mean) / std
+    return torch.div(x / x.new_full((), 255.0) - mean, std, out=out)
 
 
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -312,27 +318,44 @@ def decode_raw_predictions(preds: torch.Tensor, anchors: torch.Tensor,
     return boxes, torch.sigmoid(preds[..., 4 * reg_max:])
 
 
-def serve_pipeline(model: YoloModel, images: torch.Tensor, reg_max: int,
-                   *, conf_thres: float, iou_thres: float, max_det: int,
-                   top_k: int, merge: bool,
-                   class_filter: Optional[Tuple[int, ...]],
-                   multi_label: bool) -> NMSResult:
-    """The body of :meth:`Detector.serve` on a preprocessed NHWC batch:
-    forward → DFL decode → class-aware batched NMS, each in its span.
-    ``serve`` runs it under ``inference_mode``; ``export.export_serving``
-    traces it, with no profiler running, so its graph holds no span."""
-    with span("serve/forward"):
-        preds, anchors, strides = model(images)
-    with span("serve/decode"):
-        boxes, scores = decode_raw_predictions(preds, anchors, strides,
-                                               reg_max)
-    with span("serve/nms"):
+def serve_phases(model: YoloModel, reg_max: int, *, conf_thres: float,
+                 iou_thres: float, max_det: int, top_k: int, merge: bool,
+                 class_filter: Optional[Tuple[int, ...]],
+                 multi_label: bool) -> Tuple[Phase, ...]:
+    """The phases of serving a preprocessed NHWC batch, as (span, fn)
+    pairs, each fn taking the previous one's output: ``serve/forward``
+    (the model), ``serve/decode`` (DFL decode) and ``serve/nms``
+    (class-aware batched NMS, a fixed-shape :class:`NMSResult`)."""
+    def decode(out):
+        preds, anchors, strides = out
+        return decode_raw_predictions(preds, anchors, strides, reg_max)
+
+    def nms(out):
+        boxes, scores = out
         return batched_nms(boxes, scores.amax(-1), scores.argmax(-1),
                            conf_thres=conf_thres, iou_thres=iou_thres,
                            max_det=max_det, top_k=top_k, merge=merge,
                            class_filter=class_filter,
                            multi_label=multi_label,
                            all_scores=scores if multi_label else None)
+
+    return (("serve/forward", model), ("serve/decode", decode),
+            ("serve/nms", nms))
+
+
+def serve_pipeline(model: YoloModel, images: torch.Tensor, reg_max: int,
+                   *, conf_thres: float, iou_thres: float, max_det: int,
+                   top_k: int, merge: bool,
+                   class_filter: Optional[Tuple[int, ...]],
+                   multi_label: bool) -> NMSResult:
+    """The body of :meth:`Detector.serve` on a preprocessed NHWC batch,
+    run eagerly: :func:`serve_phases`, each in its span.
+    ``export.export_serving`` traces it, with no profiler running, so its
+    graph holds no span."""
+    return run_phases(serve_phases(
+        model, reg_max, conf_thres=conf_thres, iou_thres=iou_thres,
+        max_det=max_det, top_k=top_k, merge=merge, class_filter=class_filter,
+        multi_label=multi_label), images)
 
 
 def _has_key(tree: Mapping[str, Any], name: str) -> bool:
@@ -392,6 +415,8 @@ class Detector:
         self._quant_skip: Tuple[str, ...] = ()
         # a fused model's state as folded, fp32 (int8 where quantized)
         self._state: Optional[Dict[str, torch.Tensor]] = None
+        # serve's CUDA graphs, by call signature
+        self._graphs = ServeGraphs()
 
     def _build(self, fused: bool) -> YoloModel:
         return YoloModel(self.width, self.depth, self.csp, self.num_classes,
@@ -401,6 +426,8 @@ class Detector:
                          quant_skip=self._quant_skip)
 
     def _install(self, model: YoloModel, fused: bool) -> None:
+        # the graphs captured the model that this one replaces
+        self._graphs.clear()
         model = model.to(self.device, memory_format=torch.channels_last)
         self._state = None
         if fused:
@@ -634,19 +661,53 @@ class Detector:
         :class:`NMSResult`. ``device_preprocess=True`` takes resized raw
         uint8 NHWC and scales and normalises it on the device (fp32, the
         arithmetic of :func:`preprocess_image`). Nothing here waits for
-        the device. Under a running profiler the call carries its spans
-        (``utils.profiling.span``): ``serve`` around ``serve/input`` (the
-        copy to the device and the normalisation), ``serve/forward`` (a
-        ``fwd/<stage>`` span a stage of the model inside), ``serve/decode``
-        and ``serve/nms``."""
+        the device beyond the batch's copy to it. Under a running profiler
+        the call carries its spans (``utils.profiling.span``): ``serve``
+        around ``serve/input`` (the copy to the device and the
+        normalisation), ``serve/forward`` (a ``fwd/<stage>`` span a stage
+        of the model inside), ``serve/decode`` and ``serve/nms``.
+
+        On a CUDA device the phases after the input run as CUDA graphs
+        (``models.serve_graph``) from the second call of a signature: the
+        device, the batch's shape and dtype, ``device_preprocess``, the
+        other arguments and whether the head takes the fused cls tower.
+        The first call of a signature runs eagerly, as does every call on
+        the CPU and a signature whose capture failed
+        (``utils.profiling.serve_graph_stats`` counts each). A replay runs
+        no Python of the model: its forward hooks and ``fwd/<stage>``
+        spans run only at the capture. The result is a copy out of the
+        graphs' buffers, so batches may be held in flight; one detector's
+        graphs serve one CUDA stream at a time (a call waits for the
+        previous call's replay, on whatever stream it ran). A batch that
+        already lies on the device is copied into the graphs' input."""
         assert self.model is not None, "call .init() or load weights"
+        images = torch.as_tensor(images)
+        if class_filter is not None:
+            class_filter = tuple(class_filter)
+        options = dict(conf_thres=conf_thres, iou_thres=iou_thres,
+                       max_det=max_det, top_k=top_k, merge=merge,
+                       class_filter=class_filter, multi_label=multi_label)
+        tower, packs = self.model.head.graph_inputs()
+        key = (self.device, tuple(images.shape), images.dtype,
+               device_preprocess, *options.values(), tower,
+               tuple(map(id, packs)))
+        dtype = torch.float32 if device_preprocess else images.dtype
         with span("serve"):
-            with span("serve/input"):
-                images = torch.as_tensor(images).to(self.device)
-                if device_preprocess:
-                    images = normalize_uint8(images, self._mean, self._std)
-            return serve_pipeline(self.model, images, self.reg_max,
-                                  conf_thres=conf_thres, iou_thres=iou_thres,
-                                  max_det=max_det, top_k=top_k, merge=merge,
-                                  class_filter=class_filter,
-                                  multi_label=multi_label)
+            return self._graphs.run(
+                key, self.device,
+                lambda out: self._input(images, device_preprocess, out),
+                lambda: torch.empty_like(images, dtype=dtype,
+                                         device=self.device),
+                serve_phases(self.model, self.reg_max, **options),
+                held=packs)
+
+    def _input(self, images: torch.Tensor, device_preprocess: bool,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``serve``'s input phase: the batch on the device, normalised
+        where it is raw uint8; written into ``out`` where given."""
+        if device_preprocess:
+            return normalize_uint8(images.to(self.device), self._mean,
+                                   self._std, out=out)
+        if out is None:
+            return images.to(self.device)
+        return out.copy_(images)

@@ -126,6 +126,13 @@ class Head(nn.Module):
                               conv.bias.detach().clone()))
             self._cls_packs[i] = tuple(pairs)
 
+    def graph_inputs(self) -> Tuple[bool, Tuple]:
+        """What a captured forward of this head reads beyond its parameters
+        and buffers: whether it takes the fused cls tower, and the packed
+        weights the kernel reads (new tensors after every
+        :meth:`pack_cls_tower`)."""
+        return self._fused_cls_tower, tuple(self._cls_packs)
+
     def forward(self, feats: Sequence[torch.Tensor]):
         use_fused_cls = self._fused_cls_tower and not self.training
         outs = []

@@ -126,7 +126,7 @@ def _psa_attention_fwd_cuda(qkv: torch.Tensor, num_heads: int, dim_key: int,
                  (qkv.data_ptr(), out.data_ptr(), v.data_ptr(), b, t,
                   num_heads, dim_key, dim_head, dim_key ** -0.5,
                   int(qkv.dtype == torch.bfloat16)), qkv.device)
-    psa_attention.launches += 1
+    build.count_launch(psa_attention)
     return out, v
 
 
@@ -190,7 +190,7 @@ def psa_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, dv: torch.Tensor,
                   dqkv.data_ptr(), stats.data_ptr(), b, t, num_heads,
                   dim_key, dim_head, dim_key ** -0.5,
                   int(qkv.dtype == torch.bfloat16)), qkv.device)
-    psa_attention_bwd.launches += 1
+    build.count_launch(psa_attention_bwd)
     return dqkv
 
 

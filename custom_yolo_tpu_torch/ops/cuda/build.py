@@ -11,16 +11,22 @@ per missing library, all at once, and waits for every one of them.
 Wrappers call a library only through :func:`launch` (a kernel launch, on
 the device of the tensors it is given) and :func:`query` (host-side
 arithmetic such as a shared-memory size); both set each C function's
-``ctypes`` signature once and reuse it.
+``ctypes`` signature once and reuse it. Each wrapper counts its launches
+in its ``launches`` attribute through :func:`count_launch`; a thread that
+captures a CUDA graph counts into its own :func:`launch_tally` instead,
+since a capture records launches and runs none.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
@@ -47,8 +53,15 @@ SOURCES = {
 SMEM_LIMIT = 232_448
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one first load at a time: threads that serve replicas reach a library's
+# first use together, and two builds of it in one process share a
+# temporary file
+_load_lock = threading.Lock()
 # (library, C function name) → the function, its signature set
 _functions: Dict[Tuple[Any, str], Any] = {}
+# ``counts``: this thread's open launch_tally, if any
+_tally = threading.local()
+_launches_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -107,11 +120,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"kernel {name!r} needs a CUDA device and "
-                               "none is available")
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                if not torch.cuda.is_available():
+                    raise RuntimeError(f"kernel {name!r} needs a CUDA "
+                                       "device and none is available")
+                build([name])
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 
@@ -156,3 +172,28 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
                       ctypes.c_char_p)
         raise RuntimeError(f"{what}: CUDA error {status} "
                            f"({fn(status).decode()})")
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel: into the calling
+    thread's open :func:`launch_tally` if it has one, else into
+    ``wrapper.launches``."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        tally[wrapper] += n
+        return
+    with _launches_lock:
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Within the block, the launches that this thread's wrappers make are
+    counted into the yielded ``Counter`` (wrapper → launches) and not into
+    the wrappers' ``launches``; other threads count as before."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = collections.Counter()
+    try:
+        yield _tally.counts
+    finally:
+        _tally.counts = outer

@@ -118,7 +118,7 @@ def _cls_stage_cuda(x: torch.Tensor, dw_kernel: torch.Tensor,
                   outb.data_ptr(), result.data_ptr(), b, h, w, c, m, nc,
                   outk.shape[1], int(has_out), x.element_size()),
                  x.device)
-    cls_tower.launches += 1
+    build.count_launch(cls_tower)
     return result
 
 

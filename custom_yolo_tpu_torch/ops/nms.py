@@ -118,8 +118,12 @@ def batched_nms(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
         boxes_xyxy = boxes_xyxy.repeat_interleave(nc, dim=1)
 
     if class_filter is not None:
-        allowed = torch.isin(classes, torch.tensor(
-            class_filter, dtype=torch.int32, device=classes.device))
+        # compared class by class: a tensor of the classes would be a copy
+        # from the host, which waits for the device and cannot be captured
+        # in a CUDA graph
+        allowed = torch.zeros_like(classes, dtype=torch.bool)
+        for c in class_filter:
+            allowed |= classes == c
         scores = torch.where(allowed, scores, torch.full_like(scores, -1.0))
 
     # candidate count before the pool cap (reference n) — gates merge

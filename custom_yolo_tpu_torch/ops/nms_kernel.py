@@ -97,7 +97,7 @@ def _nms_keep_batched_cuda(boxes: torch.Tensor, valid: torch.Tensor,
                            iou_thres: float) -> torch.Tensor:
     keep = _launch(boxes, valid, iou_thres)
     if keep.numel():
-        nms_keep_batched.launches += 1
+        build.count_launch(nms_keep_batched)
     return keep
 
 
@@ -105,7 +105,7 @@ def _nms_keep_single_cuda(boxes: torch.Tensor, valid: torch.Tensor,
                           iou_thres: float) -> torch.Tensor:
     keep = _launch(boxes, valid, iou_thres)
     if keep.numel():
-        nms_keep_single.launches += 1
+        build.count_launch(nms_keep_single)
     return keep
 
 

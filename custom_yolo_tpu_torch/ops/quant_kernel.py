@@ -161,7 +161,7 @@ def stochastic_round_many(flats: Sequence[torch.Tensor], seed: int
                   ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32],
                  (table.data_ptr(), len(rows), blocks, BLOCK_ELEMS, k0, k1),
                  device)
-    stochastic_round_many.launches += 1
+    build.count_launch(stochastic_round_many)
     return outs
 
 

@@ -134,7 +134,7 @@ def _sppf_pyramid_cuda(x: torch.Tensor) -> torch.Tensor:
                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9,
                  (x.data_ptr(), out.data_ptr(), b, h, w, c // vec,
                   x.element_size(), vec, th, tw, cvb), x.device)
-    sppf_pyramid.launches += 1
+    build.count_launch(sppf_pyramid)
     return out
 
 

@@ -7,9 +7,12 @@ Serving is batch-parallel, so each device holds one replica of the served
 single-device serving program (forward, DFL decode, NMS, with the port's
 kernels) on its slice of the batch; no collective is needed. The JAX
 function runs one ``shard_map`` over the mesh; here one host thread per
-slice drives its device, each on a CUDA stream of its own, so slices run
-side by side even where one card is listed twice. The slices' fixed-shape
-``NMSResult``s are concatenated in batch order on the first device.
+slice drives its device, each on a CUDA stream of its own, so slices of
+distinct devices run side by side. A card listed twice holds one replica,
+whose serving CUDA graphs serve one stream at a time: its two slices run
+side by side on a signature's first call and one after the other once the
+graphs replay. The slices' fixed-shape ``NMSResult``s are concatenated in
+batch order on the first device.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from custom_yolo_tpu_torch.models.detector import Detector
+from custom_yolo_tpu_torch.models.serve_graph import ServeGraphs
 from custom_yolo_tpu_torch.ops.nms import NMSResult
 
 
@@ -34,13 +38,14 @@ def _indexed(device: torch.device) -> torch.device:
 def _replica(detector: Detector, device: torch.device) -> Detector:
     """``detector`` served from ``device``: itself where it already lies
     there, else a copy of its model and normalisation constants moved
-    there (the kept fp32 fold is shared, not copied: serving does not read
-    it)."""
+    there, with serving graphs of its own (the kept fp32 fold is shared,
+    not copied: serving does not read it)."""
     if _indexed(device) == _indexed(detector.device):
         return detector
     rep = copy.copy(detector)
     rep.device = device
     rep.model = copy.deepcopy(detector.model).to(device)
+    rep._graphs = ServeGraphs(detector._graphs.capture)
     rep._mean = detector._mean.to(device)
     rep._std = detector._std.to(device)
     return rep

@@ -2,8 +2,10 @@
 ``trace`` captures a ``torch.profiler`` trace of a block into a Chrome
 trace file (viewable in Perfetto or ``chrome://tracing``), ``span`` names
 a block of the port's hot path in such a trace, ``time_fn`` times a
-function with the device synchronised, and ``kernel_launches`` reads the
-launch counts of the port's hand-written kernels."""
+function with the device synchronised, ``kernel_launches`` reads the
+launch counts of the port's hand-written kernels, and
+``serve_graph_stats`` how ``Detector.serve`` ran: CUDA-graph replays,
+captures, and eager calls by their reason."""
 
 from __future__ import annotations
 
@@ -134,3 +136,12 @@ def kernel_launches() -> Dict[str, int]:
     """Launches of each hand-written kernel in this process so far."""
     return {name: wrapper.launches
             for name, wrapper in kernel_wrappers().items()}
+
+
+def serve_graph_stats() -> Dict[str, object]:
+    """How ``Detector.serve`` ran in this process so far: CUDA-graph
+    captures and replays, eager calls by reason, and the replays' share
+    (``models.serve_graph.serve_graph_stats``)."""
+    # imported here: models.serve_graph imports this module
+    from custom_yolo_tpu_torch.models import serve_graph
+    return serve_graph.serve_graph_stats()

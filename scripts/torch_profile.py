@@ -76,7 +76,9 @@ def main(argv=None):
     from custom_yolo_tpu_torch.train.optim import build_optimizer
     from custom_yolo_tpu_torch.train.train_state import TrainState
     from custom_yolo_tpu_torch.train.train_step import make_train_step
-    from custom_yolo_tpu_torch.utils.profiling import kernel_launches, trace
+    from custom_yolo_tpu_torch.utils.profiling import (kernel_launches,
+                                                       serve_graph_stats,
+                                                       trace)
 
     cfg = Config.from_yaml(args.config)
     if args.preset:
@@ -122,6 +124,8 @@ def main(argv=None):
           f"scripts/torch_analyze_profile.py --dir {profile_dir} --steps "
           f"{args.steps}")
     print(f"[INFO] kernel launches: {json.dumps(kernel_launches())}",
+          flush=True)
+    print(f"[INFO] serve graphs: {json.dumps(serve_graph_stats())}",
           flush=True)
     return {"profile_dir": profile_dir, "loss": loss}
 

@@ -30,6 +30,12 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card; skips without one (run on "
+        "the card with `python -m pytest --noconftest -m card FILE`)")
+
+
 @pytest.fixture(scope="session")
 def devices():
     return jax.devices()

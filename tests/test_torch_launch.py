@@ -22,6 +22,8 @@ they streamed their key tiles.
 import ast
 import contextlib
 import ctypes
+import threading
+import time
 import types
 from pathlib import Path
 
@@ -94,6 +96,35 @@ def fake_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
     return state
+
+
+def test_load_builds_a_library_once_across_threads(monkeypatch):
+    """Threads that serve replicas reach a library's first use at once:
+    one builds and loads it, the others wait for it and take the same
+    handle."""
+    built = []
+
+    def slow_build(names):
+        built.append(list(names))
+        time.sleep(0.05)
+
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build", slow_build)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    start, libs = threading.Barrier(4), []
+
+    def work():
+        start.wait(timeout=60)
+        libs.append(build.load("sppf"))
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert built == [["sppf"]]
+    assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
 
 
 def test_launch_runs_on_the_tensor_device_with_its_stream(fake_cuda):
