@@ -97,8 +97,13 @@ def main(argv=None) -> int:
     generator = importlib.import_module(f"perfbench.traffic.{name}")
     rows = []
 
+    clock = [time.time()]
+
     def record(kind, seed, values):
-        row = {"kind": kind, "seed": seed, **values}
+        now = time.time()
+        row = {"kind": kind, "seed": seed, **values,
+               "seconds": round(now - clock[0], 1)}
+        clock[0] = now
         rows.append(row)
         print(json.dumps(row), flush=True)
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -133,10 +133,15 @@ def forbidden_modules() -> List[str]:
 
 
 def device_record(torch, count: int) -> Dict[str, Any]:
-    """``device`` of the result line: the fullest card's peak."""
+    """``device`` of the result line: the fullest card's peak, allocated
+    and reserved. The reserved peak also counts memory the allocator holds
+    for tensors that no allocation reports, such as a CUDA graph's private
+    pool."""
     peak = max(torch.cuda.max_memory_allocated(i) for i in range(count))
+    reserved = max(torch.cuda.max_memory_reserved(i) for i in range(count))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": count, "memory_peak_bytes": int(peak)}
+            "count": count, "memory_peak_bytes": int(peak),
+            "memory_reserved_bytes": int(reserved)}
 
 
 def metric_entry(value: float, unit: str) -> Dict[str, Any]:

@@ -1,8 +1,9 @@
-"""Device milliseconds a batch launched inside `serve` after the model's
-forward returned: the DFL decode, the pool and the NMS kernel."""
+"""Device milliseconds a batch launched under the program's `serve/decode`
+and `serve/nms` spans: the DFL decode, the pool, the NMS kernel and the
+copy of the result out of the graphs' buffers."""
 
-from perfbench.readers import phase_ms
+from perfbench.program_spans import SERVE_DECODE, SERVE_NMS, device_ms
 
 
 def read(view):
-    return phase_ms(view, "decode_nms")
+    return device_ms(view, SERVE_DECODE, SERVE_NMS)

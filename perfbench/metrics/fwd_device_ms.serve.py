@@ -1,8 +1,9 @@
-"""Device milliseconds a batch under the `fwd/<stage>` spans that the
-benchmark opens around each stage of the served model."""
+"""Device milliseconds a batch launched under the program's
+`serve/forward` span: the fused model's forward, eager or replayed as a
+CUDA graph."""
 
-from perfbench.readers import phase_ms
+from perfbench.program_spans import SERVE_FORWARD, device_ms
 
 
 def read(view):
-    return phase_ms(view, "fwd")
+    return device_ms(view, SERVE_FORWARD)

@@ -8,15 +8,20 @@ program without them leaves every reader here with nothing to read: each
 then returns None.
 
 * serving (``Detector.serve``): ``serve`` around the call, ``serve/input``
-  around the copy of the batch to the card and its normalisation;
+  around the copy of the batch to the card and its normalisation,
+  ``serve/forward``, ``serve/decode`` and ``serve/nms`` around the phases
+  after it (the last with the copy of the result out of the graphs'
+  buffers), eager or replayed as CUDA graphs;
 * training (``make_train_step``): ``train/step`` around the step,
   ``train/assign`` around the assigner's call inside the loss.
 
 A device event is under a span where the span encloses the runtime call
-that launched it (``Digest.events[*].stack``). An idle gap opens at the
-end of a busy interval of the card (or at the window's start) and is
-under a span of the main thread where the span is open at that instant,
-the rule of ``Digest.idle_gaps``.
+that launched it (``Digest.events[*].stack``): for a replayed CUDA graph,
+every kernel of the graph is under the spans around its
+``cudaGraphLaunch``. An idle gap opens at the end of a busy interval of
+the card (or at the window's start) and is under a span of the main
+thread where the span is open at that instant, the rule of
+``Digest.idle_gaps``.
 """
 
 from __future__ import annotations
@@ -28,15 +33,19 @@ from perfbench.readers import idle_pct
 
 SERVE = "serve"
 SERVE_INPUT = "serve/input"
+SERVE_FORWARD = "serve/forward"
+SERVE_DECODE = "serve/decode"
+SERVE_NMS = "serve/nms"
 TRAIN_STEP = "train/step"
 TRAIN_ASSIGN = "train/assign"
 
 
-def device_ms(view, span: str) -> Optional[float]:
-    """Device milliseconds an item of the events launched under ``span``."""
+def device_ms(view, *spans: str) -> Optional[float]:
+    """Device milliseconds an item of the events launched under any of
+    ``spans``."""
     d = view.digest
     hits = [e["dur"] for e in d.events
-            if any(s["name"] == span for s in e["stack"])]
+            if any(s["name"] in spans for s in e["stack"])]
     if not hits:
         return None
     return sum(hits) / 1e3 / d.items

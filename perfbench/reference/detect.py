@@ -20,6 +20,13 @@ cap). The program's served set is held to the reference's **kept** set:
   :data:`MARGIN` of the other side's cut (the gate, the pool's last
   candidate, or the last of ``max_det`` kept), where a rounding may
   rightly push it either way.
+
+Greedy NMS also keeps no two boxes of one class that overlap above the
+threshold, whatever the order of their scores: :func:`overlapping_pairs`
+counts the served pairs that do. It holds the suppression itself where
+the cut blurs the sets: on a large frame the best 1,024 boxes lie far
+apart, NMS suppresses few of them, and a served set that suppresses
+nothing differs from the kept set mostly near the cut.
 """
 
 from __future__ import annotations
@@ -36,6 +43,10 @@ MAX_WH = 7680.0  # class offset of class-aware suppression
 MATCH = 0.5
 # a detection this close (logits) to the other side's cut may be left out
 MARGIN = 0.1
+# served pairs overlap where their IoU passes the threshold by this share:
+# the band below it takes any rounding of another IoU arithmetic, and no
+# more, since the pairs a fault keeps spread over (threshold, 1]
+IOU_BAND = 2.0 ** -10
 
 
 def logit(p: torch.Tensor) -> torch.Tensor:
@@ -87,6 +98,17 @@ def nms(boxes: torch.Tensor, logits: torch.Tensor, conf: float,
                     "cut": float(lg[-1]) if len(idx) == max_det
                     else pool_cut})
     return out
+
+
+def overlapping_pairs(boxes: torch.Tensor, classes: torch.Tensor,
+                      iou_thres: float) -> int:
+    """Pairs of one image's served detections (``boxes`` (D, 4) xyxy,
+    ``classes`` (D,)) of one class whose IoU passes ``iou_thres`` by more
+    than :data:`IOU_BAND` of it; greedy NMS keeps none. The boxes are set
+    apart by class as :func:`nms` does."""
+    shifted = boxes.float() + classes.float()[:, None] * MAX_WH
+    iou = iou_pairwise(shifted, shifted)
+    return int((iou > iou_thres * (1.0 + IOU_BAND)).triu(1).sum())
 
 
 def image_gaps(prog_boxes: torch.Tensor, prog_scores: torch.Tensor,

@@ -76,7 +76,7 @@ class Run:
     def device_record(self):
         if self.device.type != "cuda":
             return {"platform": "cpu", "kind": "cpu", "count": 0,
-                    "memory_peak_bytes": 0}
+                    "memory_peak_bytes": 0, "memory_reserved_bytes": 0}
         return core.device_record(self.torch, 1)
 
     def compare(self, name: str, value: float):

@@ -24,13 +24,28 @@ from perfbench.traffic import serve, train
 CPU = torch.device("cpu")
 
 
-def serve_cell():
-    # the cell's own frames at a small batch: at 160² the pool of 1024
-    # takes every anchor and NMS's ties read three times as often
-    cfg = core.load_json(core.BENCH / "configs" / "n640.json")
-    mix = core.load_json(core.BENCH / "mixes" / "serve_b64.json")
-    mix.update(batch=2, ring=3, warm_batches=2, check_batches=2)
+def serve_cell(name):
+    """A serving cell's configuration, mix and limits at a size a CPU test
+    can hold, with more anchors than the pool of 1024 takes (at 160² the
+    pool takes every anchor and NMS's ties read three times as often):
+    n640-serve-b64 at a batch of 2; x4k-serve-b1 at batch 1 on a 448 × 800
+    frame, 4K's wide aspect. On a 256 × 448 frame the x preset's sound runs
+    already read as far from the reference as the limits (gap 0.045-0.077,
+    unmatched 1.3-5.2% on four seeds, against 0.032-0.043 and 0-0.9% here):
+    its deepest maps have too few pixels for settled statistics."""
+    if name == "n640":
+        cfg = core.load_json(core.BENCH / "configs" / "n640.json")
+        mix = core.load_json(core.BENCH / "mixes" / "serve_b64.json")
+        mix.update(batch=2, ring=3, warm_batches=2, check_batches=2)
+    else:
+        cfg = core.load_json(core.BENCH / "configs" / "x4k.json")
+        cfg["input_size"] = [448, 800]
+        mix = core.load_json(core.BENCH / "mixes" / "serve_b1.json")
+        mix.update(ring=2, warm_batches=2, check_batches=2)
     return {"config": cfg, "mix": mix}
+
+
+SERVE_CELLS = ("n640", "x4k")
 
 
 def train_cell():
@@ -66,20 +81,24 @@ def few_threads():
     torch.set_num_threads(threads)
 
 
-def test_serving_sound_run_passes():
-    ok, numbers = run(serve, serve_cell(), 2 ** 31 + 11)
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_serving_sound_run_passes(cell):
+    ok, numbers = run(serve, serve_cell(cell), 2 ** 31 + 11)
     assert ok, numbers
 
 
-def test_serving_control_int8_fails():
-    ok, numbers = run(serve, serve_cell(), 2 ** 31 + 11, "build_detector",
-                      calibrate.int8_detector)
+@pytest.mark.parametrize("cell", SERVE_CELLS)
+def test_serving_control_int8_fails(cell):
+    ok, numbers = run(serve, serve_cell(cell), 2 ** 31 + 11,
+                      "build_detector", calibrate.int8_detector)
     assert not ok, numbers
 
 
+@pytest.mark.parametrize("cell", SERVE_CELLS)
 @pytest.mark.parametrize("fault", sorted(faults.SERVE))
-def test_serving_fault_fails(fault):
-    ok, numbers = run(serve, serve_cell(), 2 ** 31 + 11, "build_detector",
+def test_serving_fault_fails(fault, cell):
+    ok, numbers = run(serve, serve_cell(cell), 2 ** 31 + 11,
+                      "build_detector",
                       lambda original: faults.serving(original, fault))
     assert not ok, (fault, numbers)
 

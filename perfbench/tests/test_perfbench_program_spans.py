@@ -160,3 +160,90 @@ def test_program_spans_move_no_phase(trace, items):
     assert ([e["phase"] for e in with_spans.events]
             == [e["phase"] for e in without.events])
     assert with_spans.busy == without.busy
+
+
+def replay_trace():
+    """One batch served by graph replay in a 100 µs window: the eager input
+    (a copy and the normalisation), then one ``cudaGraphLaunch`` in each of
+    ``serve/forward``, ``serve/decode`` and ``serve/nms``, whose kernels
+    all carry the launch's correlation id; the result's clone is copied
+    under ``serve/nms``. No ``fwd/`` span fires in a replay.
+
+    Card: copy 10-14, normalise 15-17, forward conv 20-40, K1 40-50, K5
+    50-52, decode 55-58, NMS 60-62 and 62-65, clone 66-67."""
+    return [
+        _span(tr.WINDOW, 0, 100),
+        _span("serve", 5, 70),
+        _span("serve/input", 5, 10),
+        _launch(6, 1, name="cudaMemcpyAsync"),
+        _launch(9, 2),
+        _span("serve/forward", 16, 5),
+        _launch(17, 3, name="cudaGraphLaunch"),
+        _span("serve/decode", 22, 3),
+        _launch(23, 4, name="cudaGraphLaunch"),
+        _span("serve/nms", 26, 8),
+        _launch(27, 5, name="cudaGraphLaunch"),
+        _launch(30, 6, name="cudaMemcpyAsync"),
+        _device("Memcpy HtoD (Pinned -> Device)", 10, 4, 1, "gpu_memcpy"),
+        _device("elementwise_kernel<float>(int)", 15, 2, 2),
+        _device("conv_kernel(int)", 20, 20, 3),
+        _device("psa_attention_fwd_bf16(int)", 40, 10, 3),
+        _device("sppf_pyramid_kernel(int)", 50, 2, 3),
+        _device("dfl_kernel(int)", 55, 3, 4),
+        _device("nms_mask_kernel(int)", 60, 2, 5),
+        _device("nms_sweep_kernel(int)", 62, 3, 5),
+        _device("Memcpy DtoD (Device -> Device)", 66, 1, 6, "gpu_memcpy"),
+    ]
+
+
+X4K = core.load_json(core.BENCH / "configs" / "x4k.json")
+
+
+def test_replayed_kernels_fall_under_their_launchs_span():
+    v = SimpleNamespace(digest=tr.Digest(replay_trace(), items=1, images=1),
+                        config=X4K, mix={"batch": 1})
+    # the three graphs' kernels, each under the span of its launch
+    assert metric("fwd_device_ms.serve", v) == pytest.approx(32 / 1e3)
+    assert metric("decode_nms_device_ms.serve", v) == pytest.approx(9 / 1e3)
+    assert metric("input_device_ms.serve", v) == pytest.approx(6 / 1e3)
+    # nothing is filed under the benchmark's own hooks, which a replay
+    # does not fire
+    assert {e["phase"] for e in v.digest.events} == {"other"}
+    assert metric("attention_roofline.serve", v) == pytest.approx(
+        100 * 7.755976865520728e-05 / 10e-6)
+    k5, k2 = core.kernel("k5_sppf"), core.kernel("k2_nms")
+    bound = (7.755976865520728e-05
+             + k5.bound_s(**k5.call_shape(X4K, 1))[0]
+             + k2.bound_s(**k2.call_shape(X4K, 1))[0])
+    assert metric("kernels_roofline.serve", v) == pytest.approx(
+        100 * bound / 17e-6)
+
+
+def test_eager_serving_phases_by_the_programs_spans():
+    """The serving traffic installs none of the benchmark's hooks: without
+    them the program's spans read what the hooks read in the same batches
+    (the hooks' ``decode_nms`` span, which opens inside ``serve/forward``
+    and closes after ``serve``, does not nest)."""
+    hooks = view(serve_trace(), 2, (10, 80, 0.002))
+    v = view([e for e in serve_trace() if e["name"] != tr.DECODE_SPAN
+              and not e["name"].startswith(tr.FWD_PREFIX)],
+             2, (10, 80, 0.002))
+    # the forward's conv launches 15 + 10 µs; the decode 4 and the NMS 10
+    assert metric("fwd_device_ms.serve", v) == pytest.approx(25 / 2e3)
+    assert metric("decode_nms_device_ms.serve", v) == pytest.approx(14 / 2e3)
+    assert metric("fwd_device_ms.serve", v) == pytest.approx(
+        readers.phase_ms(hooks, "fwd"))
+    assert metric("decode_nms_device_ms.serve", v) == pytest.approx(
+        readers.phase_ms(hooks, "decode_nms"))
+    assert metric("attention_roofline.serve", v) is None
+
+
+@pytest.mark.parametrize("name", ["fwd_device_ms.serve",
+                                  "decode_nms_device_ms.serve",
+                                  "attention_roofline.serve"])
+@pytest.mark.parametrize("trace,items", [(serve_trace, 2), (train_trace, 1),
+                                         (replay_trace, 1)])
+def test_serving_phases_read_nothing_without_their_spans(name, trace, items):
+    parent = [e for e in trace() if not e["name"].startswith(PROGRAM)
+              and "psa_attention" not in e["name"]]
+    assert metric(name, view(parent, items, (10, 80, 0.002))) is None

@@ -85,3 +85,20 @@ def test_train_step_matches_the_program():
     assert numbers["grad_median_gap"] < 1e-4, numbers
     assert numbers["grad_gap"] < 1e-2, numbers
     assert numbers["delta_gap"] < 1e-2, numbers
+
+
+def test_overlapping_pairs_of_one_class():
+    """Greedy NMS keeps no pair of one class above the threshold: pairs
+    are counted above it by more than the rounding band, and boxes of two
+    classes never overlap."""
+    boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0],
+                          [1.0, 0.0, 11.0, 10.0],     # IoU 9/11 with 0
+                          [0.0, 0.0, 10.0, 10.0],     # class 1
+                          [50.0, 50.0, 60.0, 60.0]])
+    classes = torch.tensor([0, 0, 1, 0])
+    assert detect.overlapping_pairs(boxes, classes, 0.45) == 1
+    assert detect.overlapping_pairs(boxes, classes, 0.85) == 0
+    # IoU 9/11 just above a threshold set at it: inside the band
+    iou = 9 / 11 * (1 - 2 ** -12)
+    assert detect.overlapping_pairs(boxes, classes, iou) == 0
+    assert detect.overlapping_pairs(boxes[:0], classes[:0], 0.45) == 0

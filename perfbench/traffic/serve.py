@@ -10,6 +10,10 @@ traced part of a ``--trace 1`` window), and ``check_batches`` (batches of
 the window compared with the reference, drawn from the seed, the last one
 always among them).
 
+A traced run adds nothing to the program: its per-layer metrics read the
+program's own ``serve/*`` spans, which enclose the launches of the CUDA
+graphs that ``serve`` replays as well as its eager calls.
+
 A batch's latency runs from its hand-off to ``serve`` to its detections'
 arrival on the host; ``serve_img_s`` counts every image whose detections
 arrived, over the whole window, the drain of the last batches included.
@@ -70,18 +74,13 @@ def run(r) -> Dict[str, Any]:
     r.mark("detector built and fused")
     kw = {k: mix[k] for k in ("conf_thres", "iou_thres", "top_k",
                               "max_det")}
-    spans = None
     if r.trace:
-        spans = tr.Spans(tr.model_stages(det.model), decode_after=det.model)
         tr.warm_profiler()
 
     def serve(i):
         with torch.profiler.record_function("bench/serve"):
-            res = det.serve(ring[i % mix["ring"]], device_preprocess=True,
-                            **kw)
-            if spans is not None:
-                spans.close_decode()
-        return res
+            return det.serve(ring[i % mix["ring"]], device_preprocess=True,
+                             **kw)
 
     # warm-up: the cell's one shape, through the same loop
     inflight = collections.deque()
@@ -140,8 +139,7 @@ def run(r) -> Dict[str, Any]:
         "end_to_end": {
             "serve_img_s": len(results) * b / elapsed,
             "serve_p95_ms": p95_ms(latency)}}
-    if spans is not None:
-        spans.remove()
+    if r.trace:
         out["digest"] = tr.Digest(tr.export_events(prof),
                                   mix["trace_batches"],
                                   mix["trace_batches"] * b,
@@ -173,9 +171,11 @@ def check_sample(seed: int, n_batches: int, count: int) -> list:
 def check(r, ring, results, n_batches, state) -> list:
     """The sampled batches' detections against the reference's (fp32, TF32
     off, BatchNorm folded here): ``gap_mean`` and ``box_mean`` over the
-    served detections that a kept reference detection matches, and
+    served detections that a kept reference detection matches,
     ``unmatched_pct``, the share of served and kept detections clear of
-    the cuts that the other side does not match."""
+    the cuts that the other side does not match, and ``nms_overlaps``, the
+    served pairs of one class that overlap above the threshold."""
+    t_check = time.perf_counter()
     cfg, mix = r.config, r.mix
     r.exact_fp32()
     dev = r.device
@@ -184,7 +184,7 @@ def check(r, ring, results, n_batches, state) -> list:
                     cfg["num_classes"], cfg["reg_max"], mode="eval")
     mean = torch.tensor([0.485, 0.456, 0.406], device=dev)
     std = torch.tensor([0.229, 0.224, 0.225], device=dev)
-    gap, box, unmatched, counted, missing = [], [], 0, 0, 0
+    gap, box, unmatched, counted, missing, overlaps = [], [], 0, 0, 0, 0
     served, kept = [], []
     for j in check_sample(r.seed, n_batches, mix["check_batches"]):
         res = results.get(j)
@@ -206,6 +206,9 @@ def check(r, ring, results, n_batches, state) -> list:
             box.append(g["box"])
             unmatched += g["unmatched"]
             counted += g["counted"]
+            overlaps += detect.overlapping_pairs(
+                res["boxes"][k, :n].to(dev), res["classes"][k, :n].to(dev),
+                mix["iou_thres"])
             served.append(n)
             kept.append(len(dets[k]["anchor"]))
     gap, box = torch.cat(gap), torch.cat(box)
@@ -213,14 +216,16 @@ def check(r, ring, results, n_batches, state) -> list:
     stats = {"gap_mean": float(gap.mean()) if whole else float("inf"),
              "box_mean": float(box.mean()) if whole else float("inf"),
              "unmatched_pct": (100.0 * unmatched / max(counted, 1)
-                               if not missing else float("inf"))}
+                               if not missing else float("inf")),
+             "nms_overlaps": float(overlaps) if not missing else float("inf")}
     r.note(f"detections served {min(served)}-{max(served)} an image, kept by "
            f"the reference {min(kept)}-{max(kept)}; {unmatched} of {counted} "
            f"clear of the cuts unmatched; {len(gap)} matched, widest gap "
-           f"{float(gap.max()) if len(gap) else 0.0:.4f}; batches missing "
-           f"{missing}")
+           f"{float(gap.max()) if len(gap) else 0.0:.4f}; {overlaps} served "
+           f"pairs overlap; batches missing {missing}; the check took "
+           f"{time.perf_counter() - t_check:.1f} s")
     return [r.compare(name, stats[name]) for name in r.limits]
 
 
 # the numbers a cell may compare (its configuration's limits name them)
-CANDIDATES = ("gap_mean", "box_mean", "unmatched_pct")
+CANDIDATES = ("gap_mean", "box_mean", "unmatched_pct", "nms_overlaps")
