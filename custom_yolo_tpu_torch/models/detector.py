@@ -36,6 +36,7 @@ from custom_yolo_tpu_torch.core.dtypes import DTypePolicy, resolve_policy
 from custom_yolo_tpu_torch.models.backbone import (BACKBONE_STAGES,
                                                    Backbone,
                                                    stem_kernel_to_s2d)
+from custom_yolo_tpu_torch.models import yolo12
 from custom_yolo_tpu_torch.models.head import CLS_BIAS, Head
 from custom_yolo_tpu_torch.models.neck import Neck
 from custom_yolo_tpu_torch.models.serve_graph import (Phase, ServeGraphs,
@@ -58,10 +59,17 @@ from custom_yolo_tpu_torch.utils.weights import from_jax_variables
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
+# the architectures a model is built as, with their backbone's stages by
+# the names that quant_skip takes
+ARCH_STAGES = {"yolo11": BACKBONE_STAGES, "yolo12": yolo12.BACKBONE_STAGES}
+
 
 class YoloModel(nn.Module):
     """Backbone + Neck + Head. Input NHWC float; output (preds (N, M,
-    4·reg_max+nc), anchors (M, 2), strides (M, 1)). ``s2d_stem`` and
+    4·reg_max+nc), anchors (M, 2), strides (M, 1)). ``arch`` chooses the
+    backbone and neck: ``"yolo11"`` (``models/backbone.py``, ``neck.py``)
+    or ``"yolo12"`` (``models/yolo12.py``, which takes neither serving
+    form); the head is the same. ``s2d_stem`` and
     ``merged`` select the exactly equivalent serving forms of the stem and
     of the C3K blocks (``models.backbone``, ``nn.blocks.C3K``); their
     weights come from :func:`convert_stem_variables` and
@@ -78,15 +86,28 @@ class YoloModel(nn.Module):
                  policy: DTypePolicy = DTypePolicy(), fused: bool = False,
                  s2d_stem: bool = False, merged: bool = False,
                  quantized: bool = False, quant_skip: Sequence[str] = (),
-                 remat: bool = False):
+                 remat: bool = False, arch: str = "yolo11"):
         super().__init__()
         self.policy = policy
         self.remat = remat
-        self.net = Backbone(width, depth, csp, fused=fused,
-                            s2d_stem=s2d_stem, merged=merged,
-                            quantized=quantized, quant_skip=quant_skip)
-        self.fpn = Neck(width, depth, csp, fused=fused, merged=merged,
-                        quantized=quantized)
+        if arch == "yolo11":
+            self.net = Backbone(width, depth, csp, fused=fused,
+                                s2d_stem=s2d_stem, merged=merged,
+                                quantized=quantized, quant_skip=quant_skip)
+            self.fpn = Neck(width, depth, csp, fused=fused, merged=merged,
+                            quantized=quantized)
+        elif arch == "yolo12":
+            if s2d_stem or merged:
+                raise ValueError("yolo12 has no space-to-depth stem or "
+                                 "merged C3K form")
+            self.net = yolo12.Yolo12Backbone(width, depth, csp, fused=fused,
+                                             quantized=quantized,
+                                             quant_skip=quant_skip)
+            self.fpn = yolo12.Yolo12Neck(width, depth, csp, fused=fused,
+                                         quantized=quantized)
+        else:
+            raise ValueError(f"unknown architecture {arch!r}; known: "
+                             f"{sorted(ARCH_STAGES)}")
         self.head = Head(num_classes, (width[3], width[4], width[5]),
                          reg_max=reg_max, fused=fused, quantized=quantized)
 
@@ -375,12 +396,13 @@ def _int8_paths(tree: Mapping[str, Any], path: str = "") -> list:
     return out
 
 
-def _quant_layout(int8_keys: Sequence[str]) -> Tuple[bool, Tuple[str, ...]]:
+def _quant_layout(int8_keys: Sequence[str], stages: Sequence[str]
+                  ) -> Tuple[bool, Tuple[str, ...]]:
     """(quantized, quant_skip) of a state whose int8 leaves are these: the
-    skipped stages are the backbone's stages that hold none."""
+    skipped stages are the backbone's ``stages`` that hold none."""
     if not int8_keys:
         return False, ()
-    return True, tuple(stage for stage in BACKBONE_STAGES
+    return True, tuple(stage for stage in stages
                        if not any(k.startswith(f"net.{stage}.")
                                   for k in int8_keys))
 
@@ -389,13 +411,20 @@ class Detector:
     """One model on one device, with the serving entry points.
 
     ``device`` defaults to ``"cuda"``; there is no fallback to the CPU when
-    CUDA is missing — pass ``device="cpu"`` to run the plain twins."""
+    CUDA is missing — pass ``device="cpu"`` to run the plain twins.
+    ``arch`` is :class:`YoloModel`'s: ``"yolo12"`` (``width``, ``depth``
+    and ``csp`` from ``models.yolo12.SCALES``) takes the port's own
+    weights only, and no ``optimize_for_serving``."""
 
     def __init__(self, width: Sequence[int], depth: Sequence[int],
                  csp: Sequence[bool], num_classes: int, reg_max: int = 16,
                  precision: str = "bfloat16",
                  input_size: Tuple[int, int] = (640, 640),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", arch: str = "yolo11"):
+        if arch not in ARCH_STAGES:
+            raise ValueError(f"unknown architecture {arch!r}; known: "
+                             f"{sorted(ARCH_STAGES)}")
+        self.arch = arch
         self.policy = resolve_policy(precision)
         self.width, self.depth, self.csp = tuple(width), tuple(depth), \
             tuple(csp)
@@ -423,7 +452,7 @@ class Detector:
                          self.reg_max, self.policy, fused=fused,
                          s2d_stem=self._s2d_stem, merged=self._merged,
                          quantized=self._quantized,
-                         quant_skip=self._quant_skip)
+                         quant_skip=self._quant_skip, arch=self.arch)
 
     def _install(self, model: YoloModel, fused: bool) -> None:
         # the graphs captured the model that this one replaces
@@ -479,18 +508,22 @@ class Detector:
             self._s2d_stem = variables[STEM_KEY].shape[-1] == 2
             self._merged = any(".conv12." in key for key in variables)
             self._quantized, self._quant_skip = _quant_layout(
-                [k for k, v in variables.items() if v.dtype == torch.int8])
+                [k for k, v in variables.items() if v.dtype == torch.int8],
+                ARCH_STAGES[self.arch])
             model = self._build(fused)
             state = {**model.state_dict(),
                      **{k: v.detach().clone() for k, v in variables.items()}}
         else:
+            if self.arch != "yolo11":
+                raise ValueError(f"{self.arch} loads the port's own "
+                                 "variables only, not a JAX tree")
             fused = "batch_stats" not in variables
             params = variables["params"]
             stem = params["net"]["p1_conv"]["conv"]["kernel"]
             self._s2d_stem = tuple(stem.shape[:2]) == (2, 2)
             self._merged = _has_key(params, "conv12")
             self._quantized, self._quant_skip = _quant_layout(
-                _int8_paths(params))
+                _int8_paths(params), BACKBONE_STAGES)
             model = self._build(fused)
             state = from_jax_variables(variables, model)
         self._optimized = self._s2d_stem or self._merged
@@ -564,8 +597,12 @@ class Detector:
         space-to-depth stem — the stem kernel re-expressed, not retrained —
         and, once fused, the merge of each C3K's ``conv1``/``conv2`` into
         one conv (:func:`merge_c3k_params`). Composes with :meth:`fuse` in
-        either order: when this runs first, ``fuse`` merges."""
+        either order: when this runs first, ``fuse`` merges. YOLO12 has
+        neither form and is refused."""
         assert self.model is not None, "call .init() or load weights"
+        if self.arch != "yolo11":
+            raise ValueError(f"optimize_for_serving: {self.arch} has no "
+                             "space-to-depth stem or merged C3K form")
         state = self._transform_state()
         if not self._s2d_stem:
             state = convert_stem_variables(state)

@@ -24,6 +24,7 @@ from custom_yolo_tpu_torch.ops.quant import (int8_conv, int8_conv_static,
                                              quantize_act_int8)
 from custom_yolo_tpu_torch.ops.sppf_kernel import (sppf_pyramid,
                                                    sppf_pyramid_reference)
+from custom_yolo_tpu_torch.utils.profiling import span
 
 # BatchNorm constants of the reference: eps 1e-3, torch momentum 0.03
 BN_EPS = 1e-3
@@ -361,3 +362,110 @@ class PSA(nn.Module):
         for i in range(self.n):
             b = getattr(self, f"m{i}")(b)
         return self.conv2(torch.cat([a, b], dim=1))
+
+
+# YOLO12's attention width: every area-attention head is 32 channels wide
+# (ultralytics' ``A2C2f`` asserts the hidden width is a multiple of it)
+AREA_HEAD_DIM = 32
+# the hidden width of an ABlock's MLP over its channels (the yaml's l/x)
+ABLOCK_MLP_RATIO = 1.2
+
+
+class AAttn(nn.Module):
+    """YOLO12's area attention: a 1×1 ``qkv`` ConvBN to ``3c`` channels
+    (per head ``[q | k | v]``, 32 wide each), attention inside each of
+    ``area`` strips of the row-major token sequence, a 7×7 depthwise
+    positional ConvBN ``pe`` on v, and a 1×1 ``proj``.
+
+    The strips are a view of the token-major qkv, ``(B·area, H·W/area,
+    3c)``, handed to :func:`ops.attention.psa_attention` (K1 on the card)
+    with ``dim_key = dim_head = 32``; the call is the ``attn/area`` span. A
+    map whose ``H·W`` does not divide into ``area`` strips is refused."""
+
+    def __init__(self, c: int, num_heads: int, area: int = 1,
+                 fused: bool = False, quantized: bool = False):
+        super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
+        self.num_heads, self.area = num_heads, area
+        self.dim_head = c // num_heads
+        self.qkv = ConvBN(c, 3 * c, act=False, **kw)
+        self.pe = ConvBN(c, c, 7, padding=3, groups=c, act=False, **kw)
+        self.proj = ConvBN(c, c, act=False, **kw)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        n = h * w
+        if n % self.area:
+            raise ValueError(f"area attention: a {h}×{w} map does not split "
+                             f"into {self.area} strips of equal length")
+        # channels_last: the token-major layout is the conv's own, so the
+        # transpose's contiguous() copies nothing
+        tokens = self.qkv(x).flatten(2).transpose(1, 2).contiguous()
+        strips = tokens.view(b * self.area, n // self.area, 3 * c)
+        with span("attn/area"):
+            out_tok, v_tok = psa_attention(strips, self.num_heads,
+                                           self.dim_head, self.dim_head)
+        out = out_tok.reshape(b, n, c).transpose(1, 2).reshape(b, c, h, w)
+        v = v_tok.reshape(b, n, c).transpose(1, 2).reshape(b, c, h, w)
+        return self.proj(out + self.pe(v))
+
+
+class ABlock(nn.Module):
+    """Area-attention residual + two-conv MLP residual (``c`` →
+    ``int(c·ABLOCK_MLP_RATIO)`` → ``c``)."""
+
+    def __init__(self, c: int, num_heads: int, area: int = 1,
+                 fused: bool = False, quantized: bool = False):
+        super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
+        hidden = int(c * ABLOCK_MLP_RATIO)
+        self.attn = AAttn(c, num_heads, area, **kw)
+        self.ffn1 = ConvBN(c, hidden, **kw)
+        self.ffn2 = ConvBN(hidden, c, act=False, **kw)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn2(self.ffn1(x))
+
+
+class A2C2f(nn.Module):
+    """YOLO12's CSP stage: ``conv1`` to ``out_ch/2`` channels, n chained
+    inner blocks, concat of all ``1 + n`` → ``conv2``. With ``attention``
+    each inner block is two :class:`ABlock` (``m{i}.0``, ``m{i}.1``; heads
+    of 32 channels) and the stage is a layer-scale residual ``x + γ·y``
+    (the yaml's l/x form; γ per channel, 0.01 at initialisation); without,
+    each inner block is a :class:`C3K` and the stage has no residual."""
+
+    def __init__(self, c_in: int, out_ch: int, n: int, attention: bool,
+                 area: int = 1, fused: bool = False,
+                 quantized: bool = False):
+        super().__init__()
+        kw = dict(fused=fused, quantized=quantized)
+        hidden = out_ch // 2
+        if attention and hidden % AREA_HEAD_DIM:
+            raise ValueError(f"A2C2f: {hidden} attended channels are not a "
+                             f"multiple of {AREA_HEAD_DIM}")
+        if attention and c_in != out_ch:
+            raise ValueError("A2C2f: the layer-scale residual needs as many "
+                             f"input as output channels ({c_in} ≠ {out_ch})")
+        self.conv1 = ConvBN(c_in, hidden, **kw)
+        for i in range(n):
+            blk = (nn.Sequential(*(ABlock(hidden, hidden // AREA_HEAD_DIM,
+                                          area, **kw) for _ in range(2)))
+                   if attention else C3K(hidden, hidden, **kw))
+            self.add_module(f"m{i}", blk)
+        self.n = n
+        self.conv2 = ConvBN((1 + n) * hidden, out_ch, **kw)
+        self.gamma = (nn.Parameter(torch.full((out_ch,), 0.01))
+                      if attention else None)
+
+    def forward(self, x):
+        parts: List[torch.Tensor] = [self.conv1(x)]
+        for i in range(self.n):
+            parts.append(getattr(self, f"m{i}")(parts[-1]))
+        y = self.conv2(torch.cat(parts, dim=1))
+        if self.gamma is None:
+            return y
+        # x + γ·y, rounded once
+        return torch.addcmul(x, self.gamma.to(y.dtype)[None, :, None, None],
+                             y)

@@ -13,8 +13,10 @@
   A dense conv goes through ``torch._int_mm`` (cuBLASLt's int8 product on
   the card) on an NHWC view (1×1) or an int8 im2col (k×k, strided); a
   depthwise conv through a float32 conv of the int8 values, exact because
-  each output sums 9 products of at most 127² (< 2²⁴). The JAX package
-  leaves this contraction to XLA, so it is a library call here too.
+  each output sums 9 products of at most 127² (49 for YOLO12's 7×7: still
+  < 2²⁴); a grouped conv (YOLO12's down-sampling convs) as one dense
+  product a group. The JAX package leaves this contraction to XLA, so it
+  is a library call here too.
 
 The port's weights are OIHW; the order of operations is the JAX package's
 throughout, so weights, scales and int32 accumulators are bit-equal to it.
@@ -127,8 +129,8 @@ def int8_contract(qx: torch.Tensor, qweight: torch.Tensor, stride: int = 1,
     """int8 NCHW ``qx`` × int8 OIHW ``qweight`` → the int32 accumulators,
     NHWC ``(B, Ho, Wo, O)``. Dense convs go through ``torch._int_mm``
     (operands padded with zeros to its shape rules), depthwise convs through
-    a float32 conv of the int8 values; both are exact. Other groupings
-    raise."""
+    a float32 conv of the int8 values, and a grouped conv as one dense
+    product a group; all are exact."""
     o, cin_g, kh, kw = qweight.shape
     xp = _pad(qx, padding)
     b, c, h, w = xp.shape
@@ -137,9 +139,11 @@ def int8_contract(qx: torch.Tensor, qweight: torch.Tensor, stride: int = 1,
                        groups=groups)
         return acc.to(torch.int32).permute(0, 2, 3, 1)
     if groups != 1:
-        raise ValueError(f"int8_contract: groups={groups} with {c} input and "
-                         f"{o} output channels; only dense and depthwise "
-                         "convs are taken")
+        if c % groups or o % groups:
+            raise ValueError(f"int8_contract: groups={groups} does not divide "
+                             f"{c} input and {o} output channels")
+        return torch.cat([int8_contract(xg, wg, stride) for xg, wg in zip(
+            xp.chunk(groups, dim=1), qweight.chunk(groups, dim=0))], dim=-1)
     ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
     nhwc = xp.permute(0, 2, 3, 1)
     if kh == kw == stride == 1:

@@ -308,10 +308,22 @@ def test_int8_conv_matches_jax(route, kind, dtype):
 
 
 def test_int8_contract_refuses_grouped_convs():
+    # a grouping that does not divide the channels is refused; one that
+    # does is a dense product a group, exact (YOLO12's strided 2- and
+    # 4-group convs)
     qx = torch.zeros(1, 8, 4, 4, dtype=torch.int8)
-    with pytest.raises(ValueError, match="groups=2"):
-        quant.int8_contract(qx, torch.zeros(8, 4, 3, 3, dtype=torch.int8),
-                            padding=1, groups=2)
+    with pytest.raises(ValueError, match="groups=3"):
+        quant.int8_contract(qx, torch.zeros(6, 2, 3, 3, dtype=torch.int8),
+                            padding=1, groups=3)
+    g = torch.Generator().manual_seed(5)
+    for groups, stride in ((2, 2), (4, 2), (4, 1)):
+        qx = torch.randint(-127, 128, (2, 16, 9, 7), generator=g,
+                           dtype=torch.int8)
+        qw = torch.randint(-127, 128, (24, 16 // groups, 3, 3), generator=g,
+                           dtype=torch.int8)
+        got = quant.int8_contract(qx, qw, stride, 1, groups)
+        want = quant.int8_contract_reference(qx, qw, stride, 1, groups)
+        assert torch.equal(got, want), (groups, stride)
 
 
 # ------------------------------------------------------ trees and models
