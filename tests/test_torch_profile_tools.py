@@ -9,11 +9,13 @@ phases."""
 
 import json
 import os
+import re
 
 import pytest
 import torch
 import yaml
 
+from perfbench.kernels import k1_area_attention, k1_attention
 from torch_project import load_script
 
 torch.set_num_threads(2)
@@ -148,6 +150,48 @@ def test_digest_of_a_hand_written_trace(tmp_path, capsys):
                   "## hottest kernels"):
         assert title in out
     assert f"total device time/step: {ms(total):.2f} ms" in out
+
+
+# K1's bf16 kernel as torch.profiler's trace names it on the H100
+K1_SYMBOL = ("void (anonymous namespace)::psa_attention_fwd_tc<32, 32>("
+             "__nv_bfloat16 const*, __nv_bfloat16*, __nv_bfloat16*, int, "
+             "int, int, int, float, int, int)")
+CSRC = os.path.join(REPO, "custom_yolo_tpu_torch", "ops", "cuda", "csrc")
+KERNEL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(")
+
+
+def test_digest_attributes_k1s_device_symbol(tmp_path):
+    trace = [dict(e, name=K1_SYMBOL) if "psa_attention_fwd" in e["name"]
+             else e for e in TRACE]
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": trace}))
+    got = load_script("torch_analyze_profile").main(
+        ["--dir", str(tmp_path), "--steps", str(STEPS)])
+    assert got["port_kernels"] == {"K1 psa_attention_fwd": 1,
+                                   "K4 psa_attention_bwd": 1}
+    assert rows(got["family"])["port kernels (K1-K7)"] == (ms(18), 2)
+
+
+def test_only_the_forward_kernels_carry_k1s_name():
+    """The digest and the benchmark's K1 readers count K1 as the device
+    events whose name holds ``psa_attention_fwd``: each kernel of
+    ``attention.cu`` holds it, and no kernel of another source does, so a
+    call counts as one launch and its time is never left out."""
+    assert {k1_attention.CALL_NAME, k1_area_attention.CALL_NAME,
+            *k1_attention.TRACE_NAMES, *k1_area_attention.TRACE_NAMES} \
+        == {"psa_attention_fwd"}
+    assert load_script("torch_analyze_profile").port_kernel(K1_SYMBOL) \
+        == "K1 psa_attention_fwd"
+    kernels = {}
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith(".cu"):
+            with open(os.path.join(CSRC, name)) as f:
+                kernels[name] = KERNEL.findall(f.read())
+    assert all(kernels.values()), kernels  # the pattern finds every kernel
+    assert all("psa_attention_fwd" in k for k in kernels["attention.cu"])
+    assert all("psa_attention_fwd" not in kernel
+               for name, found in kernels.items() if name != "attention.cu"
+               for kernel in found)
 
 
 def test_profile_on_the_cpu_splits_the_step(tmp_path):
